@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for Hopper, with their plain PyTorch versions.
+
+traverse — level-synchronous forest traversal (csrc/traverse.cu)
+
+Call through :mod:`repro_torch.kernels.ops`; plain versions in
+:mod:`repro_torch.kernels.ref`.  Kernels build at first use
+(:mod:`repro_torch.kernels._build`), never at import.
+"""
+
+from . import ops, ref
+
+__all__ = ["ops", "ref"]
