@@ -29,15 +29,6 @@ _DTYPES = {"feature": np.int32, "split_bin": np.int32,
            "threshold": np.float32, "leaf_value": np.float32}
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on "
-            "the CPU")
-    return device
-
-
 def model_from_numpy(arrays, config, base_score: float,
                      device="cuda") -> boosting.GBDTModel:
     """Build a model on ``device`` from numpy parameters.
@@ -50,7 +41,7 @@ def model_from_numpy(arrays, config, base_score: float,
       base_score: the model's base margin.
       device: where the model lives; 'cuda' raises if there is no GPU.
     """
-    device = _device(device)
+    device = boosting.device_of(device)
     if isinstance(config, dict):
         config = boosting.GBDTConfig(**config)
     forest = {}

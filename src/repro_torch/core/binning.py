@@ -41,3 +41,15 @@ def bin_features(x: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
         bins = torch.searchsorted(candidates.contiguous(), x.T.contiguous(),
                                   side="left").T
     return torch.where(torch.isnan(x), k, bins).to(torch.int32)
+
+
+def bin_counts(bins: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Rows per (feature, bin): (f, nbins) int32 (diagnostics, load
+    stats).  A bin id outside [0, nbins) is counted nowhere, as the JAX
+    package's one-hot count has it."""
+    f = bins.shape[1]
+    b = bins.long()
+    flat = torch.arange(f, device=bins.device)[None, :] * nbins + b
+    valid = (b >= 0) & (b < nbins)
+    return torch.bincount(flat[valid], minlength=f * nbins).reshape(
+        f, nbins).to(torch.int32)

@@ -1,21 +1,27 @@
-"""Gradient-boosted decision trees: the model and its serving surface.
+"""Gradient-boosted decision trees: the trainer and the model.
 
 :class:`GBDTConfig` has exactly the JAX package's fields and defaults,
 so ``GBDTConfig(**json)`` on either side accepts the other's checkpoint
 (the backend keeps the JAX vocabulary; :func:`repro_torch.kernels.ops.
-backend_name` maps it).  Training (``fit``) arrives with the training
-slice; a model reaches this package through a checkpoint or
-:func:`repro_torch.checkpoint.model_from_numpy`.
+backend_name` maps it).
+
+:func:`fit` trains with the paper's random split proposal.  Its round
+loop is the JAX package's round step, in the same order of operations:
+grad/hess -> propose -> bin -> ``build_tree`` -> ``margin + lr *
+leaf_value[node]``.  On the card every level of every tree is one
+histogram launch and one split-gain launch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
+import numpy as np
 import torch
 
-from . import binning, predict as predict_lib, tree as tree_lib
-from ..kernels.ops import TraverseSpec
+from . import binning, predict as predict_lib, proposal, tree as tree_lib
+from ..kernels.ops import HistSpec, TraverseSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +44,15 @@ class GBDTConfig:
     def nbins(self) -> int:
         return self.n_candidates + 1
 
+    def hist_spec(self) -> HistSpec:
+        """The fit-wide histogram workload this config implies: frontier
+        width 2^(max_depth-1) nodes, one batched level per tree depth."""
+        return HistSpec(n_nodes=2 ** max(self.max_depth - 1, 0),
+                        nbins=self.nbins,
+                        n_levels=max(self.max_depth, 1),
+                        backend=self.backend,
+                        subtract=self.subtract)
+
 
 @dataclasses.dataclass
 class GBDTModel:
@@ -47,6 +62,15 @@ class GBDTModel:
     candidates: torch.Tensor            # (rounds_proposed, f, k): n_trees
     #                                     when the trainer re-proposed
     #                                     each round, else 1 (fixed grid)
+    proposal_seconds: float = 0.0       # host-side strategies only; the
+    #                                     random strategy proposes inside
+    #                                     the round loop
+    fit_seconds: float = 0.0
+
+    @property
+    def trees(self) -> list[tree_lib.Tree]:
+        """Per-tree views of the forest."""
+        return tree_lib.forest_trees(self.forest)
 
     @property
     def device(self) -> torch.device:
@@ -130,6 +154,117 @@ class GBDTModel:
         if output == "label":
             return (p > 0.5).to(torch.float32)
         raise ValueError(f"unknown output {output!r}")
+
+
+def device_of(device) -> torch.device:
+    """``device`` as a ``torch.device``; 'cuda' raises without a GPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on "
+            "the CPU")
+    return device
+
+
+def grad_hess(margin: torch.Tensor, y: torch.Tensor, objective: str):
+    """First/second order stats of the loss with respect to the margin.
+
+    ``torch.sigmoid`` and ``jax.nn.sigmoid`` may round 1 ulp apart, so
+    logistic statistics are close to the JAX package's, not equal; the
+    mse ones are the same float32 operations.
+    """
+    if objective == "logistic":
+        p = torch.sigmoid(margin)
+        return p - y, p * (1 - p)
+    if objective == "mse":
+        return margin - y, torch.ones_like(margin)
+    raise ValueError(f"unknown objective {objective!r}")
+
+
+def _mean(y: torch.Tensor) -> torch.Tensor:
+    # XLA:CPU divides by n as a product with float32(1/n); torch.mean
+    # divides.  For 0/1 labels the sum is exact, so this is the JAX mean.
+    return y.sum() * (1.0 / y.shape[0])
+
+
+def _base_score(y: torch.Tensor, objective: str) -> float:
+    if objective == "logistic":
+        p = float(torch.clamp(_mean(y), 1e-6, 1 - 1e-6))
+        return float(np.log(p / (1 - p)))
+    return float(_mean(y))
+
+
+def fit(x, y, cfg: GBDTConfig, generator: torch.Generator | None = None,
+        *, candidates=None, device="cuda") -> GBDTModel:
+    """Train a GBDT model with random split proposal.
+
+    Args:
+      x: (n, f) features (array or tensor), moved to ``device`` as float32.
+      y: (n,) labels ({0,1} for logistic, real for mse).
+      cfg: the config; only ``strategy='random'`` is ported.
+      generator: draws the candidate grids; a ``torch.Generator`` on
+        ``device``, seeded 0 when None.  Unused with ``candidates``.
+      candidates: an injected candidate grid, in the convention of
+        :attr:`GBDTModel.candidates`: (n_trees, f, k) when
+        ``cfg.repropose_each_round``, else (1, f, k).  The RNG streams of
+        the two packages differ, so parity with the JAX package's ``fit``
+        feeds its ``model.candidates`` here.
+      device: where to train; 'cuda' (the default) raises without a GPU.
+
+    Returns:
+      The model, on ``device``.
+    """
+    if cfg.strategy != "random":
+        raise NotImplementedError(
+            f"strategy {cfg.strategy!r} is not ported yet (ROADMAP queue 1 "
+            "item 2); the port trains with strategy='random'")
+    if cfg.telemetry:
+        raise NotImplementedError(
+            "telemetry=True needs TrainReport, which lands with obs/ "
+            "(ROADMAP queue 1 item 3)")
+    device = device_of(device)
+    x = torch.as_tensor(x, device=device).to(torch.float32)
+    y = torch.as_tensor(y, device=device).to(torch.float32)
+    n, f = x.shape
+    rounds = cfg.n_trees if cfg.repropose_each_round else 1
+    if candidates is not None:
+        candidates = torch.as_tensor(candidates, device=device).to(
+            torch.float32)
+        want = (rounds, f, cfg.n_candidates)
+        if tuple(candidates.shape) != want:
+            raise ValueError(f"candidates must have shape {want} "
+                             f"(repropose_each_round="
+                             f"{cfg.repropose_each_round}), got "
+                             f"{tuple(candidates.shape)}")
+    elif generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    t_fit0 = time.perf_counter()
+
+    base = _base_score(y, cfg.objective)
+    margin = torch.full((n,), base, dtype=torch.float32, device=device)
+    spec = cfg.hist_spec()
+    trees, cands = [], []
+    for r in range(cfg.n_trees):
+        if r < rounds:
+            if candidates is not None:
+                c = candidates[r]
+            else:
+                c = proposal.random_candidates(generator, x, cfg.n_candidates)
+            bins = binning.bin_features(x, c)
+            cands.append(c)
+        g, h = grad_hess(margin, y, cfg.objective)
+        t, node = tree_lib.build_tree(
+            bins, torch.stack([g, h], 1), cands[-1],
+            max_depth=cfg.max_depth, spec=spec, l2=cfg.l2, gamma=cfg.gamma,
+            min_child_weight=cfg.min_child_weight, return_leaf_nodes=True)
+        # growth already routed every row to its leaf
+        margin = margin + cfg.learning_rate * t.leaf_value[node.long()]
+        trees.append(t)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return GBDTModel(cfg, tree_lib.forest_from_trees(trees), base,
+                     torch.stack(cands),
+                     fit_seconds=time.perf_counter() - t_fit0)
 
 
 def accuracy(model: GBDTModel, x, y) -> float:

@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from . import ref, traverse
+from . import hist, ref, split_gain as split_gain_kernel, traverse
 
 BACKENDS = ("auto", "cuda", "ref")
 _JAX_BACKENDS = {"pallas": "cuda", "interpret": "ref", "packed": "ref"}
@@ -44,6 +44,105 @@ def resolve(backend: str, device: torch.device) -> str:
         raise ValueError("backend 'ref' runs on CPU tensors; a CUDA tensor "
                          "goes to the CUDA kernel")
     return backend
+
+
+@dataclasses.dataclass(frozen=True)
+class HistSpec:
+    """Static description of a histogram workload.
+
+    Attributes:
+      n_nodes: frontier nodes per level (the widest level this spec
+        serves; shallower levels leave high node ids empty).
+      nbins: bins per feature (``n_candidates + 1``).
+      n_levels: node-id assignments batched per :func:`hist_levels` call.
+        A tree builder uses ``n_levels = max_depth`` as its fit-wide spec
+        and derives the per-call view with :meth:`with_levels`.
+      backend: 'auto' | 'cuda' | 'ref', or a JAX package name, which is
+        mapped by :func:`backend_name`.
+      acc_dtype: accumulator dtype; only 'float32', which the kernels
+        hard-code.  Kept so that a JAX package config maps field for
+        field.
+      subtract: histogram-subtraction policy.  ``True`` switches
+        :func:`hist_levels` to CHILD MODE: ``node_per_level`` carries
+        child frontier ids in ``[0, 2 * n_nodes)``, only rows routed LEFT
+        (even id) add, keyed by the parent id ``child >> 1``, into
+        ``n_nodes`` PARENT buckets; the grower reconstructs each right
+        child as ``parent - left``.
+    """
+    n_nodes: int
+    nbins: int
+    n_levels: int = 1
+    backend: str = "auto"
+    acc_dtype: str = "float32"
+    subtract: bool = False
+
+    def __post_init__(self):
+        if self.n_nodes < 1:
+            raise ValueError(f"n_nodes must be >= 1, got {self.n_nodes}")
+        if self.nbins < 1:
+            raise ValueError(f"nbins must be >= 1, got {self.nbins}")
+        if self.n_levels < 1:
+            raise ValueError(f"n_levels must be >= 1, got {self.n_levels}")
+        if self.acc_dtype != "float32":
+            raise ValueError(f"acc_dtype {self.acc_dtype!r} unsupported: "
+                             "only 'float32'")
+        object.__setattr__(self, "backend", backend_name(self.backend))
+
+    def with_levels(self, n_levels: int) -> "HistSpec":
+        """Same spec serving a different number of batched levels."""
+        return dataclasses.replace(self, n_levels=n_levels)
+
+    def child_view(self) -> "HistSpec":
+        """The half-width parent-keyed panel a subtraction grower adds
+        into: ``n_nodes`` halved (at least 1), subtract mode on."""
+        return dataclasses.replace(self, n_nodes=max(self.n_nodes // 2, 1),
+                                   subtract=True)
+
+
+def hist_levels(bins: torch.Tensor, node_per_level: torch.Tensor,
+                gh: torch.Tensor, spec: HistSpec):
+    """Level-batched gradient/hessian histogram.
+
+    Args:
+      bins: (n, f) int32 bin ids in [0, spec.nbins).
+      node_per_level: (spec.n_levels, n) int32 node ids per level;
+        negative = row masked out at that level.  Direct mode: ids in
+        [0, spec.n_nodes).  Child mode (``spec.subtract``): CHILD ids in
+        [0, 2 * spec.n_nodes), of which only the even ones add.
+      gh: (n, 2) float32 grad/hess panel.
+
+    Returns:
+      (spec.n_levels, spec.n_nodes, f, nbins, 2) float32: on the CPU bit
+      for bit the JAX package's ``hist_levels_ref`` /
+      ``hist_levels_left_ref``; on the card one kernel launch, within
+      float32 rounding of it.  Child mode returns it with the rows of
+      each bucket, (spec.n_levels, spec.n_nodes, f, nbins) int32, exact
+      on both backends: ``(panel, counts)``.
+    """
+    if node_per_level.ndim != 2 or node_per_level.shape[0] != spec.n_levels:
+        raise ValueError(
+            f"node_per_level must be (n_levels={spec.n_levels}, n), got "
+            f"shape {tuple(node_per_level.shape)}")
+    kw = dict(n_nodes=spec.n_nodes, nbins=spec.nbins)
+    on_card = resolve(spec.backend, bins.device) == "cuda"
+    if spec.subtract:
+        fn = hist.hist_levels_left_cuda if on_card else ref.hist_levels_left_ref
+        return fn(bins, node_per_level, gh, **kw)
+    fn = hist.hist_levels_cuda if on_card else ref.hist_levels_ref
+    return fn(bins, node_per_level, gh, **kw)
+
+
+def split_gain(hist_arr: torch.Tensor, *, l2: float = 1.0,
+               gamma: float = 0.0, min_child_weight: float = 1e-6,
+               backend: str = "auto"):
+    """Best (gain, bin) per (node, feature) from a histogram.
+
+    Both backends agree bit for bit (see :func:`ref.split_gain_ref`).
+    """
+    kw = dict(l2=l2, gamma=gamma, min_child_weight=min_child_weight)
+    if resolve(backend, hist_arr.device) == "cuda":
+        return split_gain_kernel.split_gain_cuda(hist_arr, **kw)
+    return ref.split_gain_ref(hist_arr, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -67,3 +67,210 @@ def traverse_chunk_ref(values: torch.Tensor, feature: torch.Tensor,
         xv = gather_feature(values, feature[tree, heap])
         node = node * 2 + torch.where(xv <= cmp[tree, heap], 0, 1)
     return leaf[tree, node]
+
+
+# ---------------------------------------------------------------------------
+# Histograms.  Bucket (level, node, feature, bin) of the flat panel is
+# ((level * n_nodes + node) * f + feature) * nbins + bin; each bucket
+# holds a (grad, hess) pair.
+# ---------------------------------------------------------------------------
+
+def hist_levels_ref(bins: torch.Tensor, node_per_level: torch.Tensor,
+                    gh: torch.Tensor, *, n_nodes: int,
+                    nbins: int) -> torch.Tensor:
+    """Grad/hess sums per (level, node, feature, bin), by ``index_add_``.
+
+    On the CPU ``index_add_`` adds in source order, so every bucket sums
+    its rows in row order, as the JAX package's ``hist_levels_ref``
+    scatter does: the two are equal bit for bit.  On a CUDA tensor the
+    adds are atomics in no fixed order.
+
+    A row whose node id is negative (masked) or ``>= n_nodes``, or whose
+    bin id lies outside ``[0, nbins)``, is dropped for that level or
+    feature.  On valid ids this is the JAX result; on invalid ids the
+    JAX ``hist_ref`` would alias the row into a neighbouring bucket.
+
+    Args:
+      bins: (n, f) integer bin ids.
+      node_per_level: (L, n) integer node ids per level.
+      gh: (n, 2) float32 grad/hess panel.
+
+    Returns:
+      (L, n_nodes, f, nbins, 2) float32.
+    """
+    L, n = node_per_level.shape
+    f = bins.shape[1]
+    key, valid = _bucket_keys(bins, node_per_level, n_nodes, nbins)
+    vals = gh.to(torch.float32)[None, :, None, :].expand(L, n, f, 2)
+    out = torch.zeros((L * n_nodes * f * nbins, 2), dtype=torch.float32,
+                      device=bins.device)
+    out.index_add_(0, key[valid], vals[valid])
+    return out.reshape(L, n_nodes, f, nbins, 2)
+
+
+def _bucket_keys(bins, node_per_level, n_nodes, nbins):
+    """(L, n, f) flat bucket of each (level, row, feature), and whether
+    its node and bin ids are in range."""
+    L = node_per_level.shape[0]
+    f = bins.shape[1]
+    dev = bins.device
+    node = node_per_level.long()
+    b = bins.long()
+    fb = torch.arange(f, device=dev)[None, :] * nbins + b          # (n, f)
+    key = ((torch.arange(L, device=dev)[:, None] * n_nodes + node)
+           [:, :, None] * (f * nbins) + fb[None])                   # (L, n, f)
+    valid = (((node >= 0) & (node < n_nodes))[:, :, None]
+             & ((b >= 0) & (b < nbins))[None])
+    return key, valid
+
+
+def _parent_ids(node_per_level: torch.Tensor) -> torch.Tensor:
+    """Child frontier ids -> the parent bucket a left child adds into;
+    -1 (dropped) for a right child or a masked row."""
+    node = node_per_level.long()
+    return torch.where((node >= 0) & (node % 2 == 0), node // 2, -1)
+
+
+def hist_levels_left_ref(bins: torch.Tensor, node_per_level: torch.Tensor,
+                         gh: torch.Tensor, *, n_nodes: int,
+                         nbins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Subtraction child mode: only rows routed LEFT add, keyed by parent.
+
+    ``node_per_level`` holds CHILD frontier ids: the left child of
+    parent ``p`` is ``2p``, the right ``2p + 1``.  Even ids add into
+    bucket ``id >> 1`` of an ``n_nodes``-parent panel; odd and negative
+    ids drop out.  The grower derives each right child as
+    ``parent - left``, and keeps a right bucket whose count falls to 0
+    exactly zero.
+
+    Returns:
+      ((L, n_nodes, f, nbins, 2) float32 sums -- bit for bit the JAX
+      package's ``hist_levels_left_ref`` --, (L, n_nodes, f, nbins) int32
+      rows of each bucket).
+    """
+    parent = _parent_ids(node_per_level)
+    out = hist_levels_ref(bins, parent, gh, n_nodes=n_nodes, nbins=nbins)
+    key, valid = _bucket_keys(bins, parent, n_nodes, nbins)
+    keys = key[valid]
+    cnt = torch.zeros(out[..., 0].numel(), dtype=torch.int32,
+                      device=bins.device)
+    cnt.index_add_(0, keys, torch.ones_like(keys, dtype=torch.int32))
+    return out, cnt.reshape(out.shape[:-1])
+
+
+def hist_ref(bins: torch.Tensor, node: torch.Tensor, gh: torch.Tensor, *,
+             n_nodes: int, nbins: int) -> torch.Tensor:
+    """(n_nodes, f, nbins, 2) single-level view of :func:`hist_levels_ref`."""
+    return hist_levels_ref(bins, node[None], gh, n_nodes=n_nodes,
+                           nbins=nbins)[0]
+
+
+# ---------------------------------------------------------------------------
+# Split gain.
+# ---------------------------------------------------------------------------
+
+PREFIX_BLOCK = 16
+
+
+def blocked_prefix(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis, in XLA:CPU's association.
+
+    XLA:CPU lowers ``jnp.cumsum`` over a long axis as a scan of blocks of
+    16: a sequential sum within each block, and ``carry + local`` for
+    every later block, where ``carry`` is the prefix of the block totals
+    up to the previous block, computed the same way one level up.  Up
+    to 16 elements that is a plain sequential sum, up to 256 the carry
+    is the previous block's last prefix.  ``torch.cumsum`` associates
+    otherwise, so this is written out; the split-gain kernel walks the
+    bins in the same order.
+    """
+    n = x.shape[-1]
+    if n <= PREFIX_BLOCK:
+        out = x.clone()
+        for i in range(1, n):
+            out[..., i] = out[..., i - 1] + x[..., i]
+        return out
+    m = -(-n // PREFIX_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, m * PREFIX_BLOCK - n))
+    local = blocked_prefix(xp.reshape(*x.shape[:-1], m, PREFIX_BLOCK))
+    carry = blocked_prefix(local[..., -1])                   # (..., m)
+    out = torch.cat([local[..., :1, :],
+                     carry[..., :-1, None] + local[..., 1:, :]], dim=-2)
+    return out.reshape(*x.shape[:-1], m * PREFIX_BLOCK)[..., :n]
+
+
+def argmax_nan_first(x: torch.Tensor, dim: int = -1):
+    """``(max, argmax)`` along ``dim`` with ``jnp.max``/``jnp.argmax``
+    semantics: NaN counts as the maximum and the first NaN wins;
+    otherwise the first maximum wins."""
+    isnan = torch.isnan(x)
+    has_nan = isnan.any(dim)
+    clean = torch.where(isnan, float("-inf"), x)
+    best = clean.amax(dim)
+    idx = clean.argmax(dim)
+    first_nan = isnan.to(torch.uint8).argmax(dim)
+    return (torch.where(has_nan, float("nan"), best),
+            torch.where(has_nan, first_nan, idx))
+
+
+def _score(g: torch.Tensor, h: torch.Tensor, l2: float) -> torch.Tensor:
+    return (g * g) / (h + l2)
+
+
+def split_gain_ref(hist: torch.Tensor, *, l2: float = 1.0,
+                   gamma: float = 0.0, min_child_weight: float = 1e-6):
+    """Best gain and split bin per (node, feature), as the JAX package's
+    ``split_gain_ref`` computes them, bit for bit on the CPU.
+
+    gain(s) = 0.5 * (GL^2/(HL+l2) + GR^2/(HR+l2) - G^2/(H+l2)) - gamma,
+    legal where both sides hold ``min_child_weight`` of hessian and
+    ``s < nbins - 1``; the prefix sums use :func:`blocked_prefix`.
+
+    Args:
+      hist: (n_nodes, f, nbins, 2) float32.
+
+    Returns:
+      gains (n_nodes, f) float32, -inf where no split is legal; idx
+      (n_nodes, f) int32, the first best bin (NaN gains win, as in
+      ``jnp.argmax``).
+    """
+    g = hist[..., 0]
+    h = hist[..., 1]
+    gl = blocked_prefix(g)
+    hl = blocked_prefix(h)
+    gt = gl[..., -1:]
+    ht = hl[..., -1:]
+    gr = gt - gl
+    hr = ht - hl
+    gain = 0.5 * (_score(gl, hl, l2) + _score(gr, hr, l2)
+                  - _score(gt, ht, l2)) - gamma
+    nbins = gain.shape[-1]
+    pos = torch.arange(nbins, device=hist.device)
+    ok = (hl >= min_child_weight) & (hr >= min_child_weight) \
+        & (pos < nbins - 1)
+    gain = torch.where(ok, gain, float("-inf"))
+    best, idx = argmax_nan_first(gain, dim=-1)
+    return best, idx.to(torch.int32)
+
+
+def hist_rounding_bound(bins: torch.Tensor, node_per_level: torch.Tensor,
+                        gh: torch.Tensor, *, n_nodes: int, nbins: int,
+                        child: bool = False) -> torch.Tensor:
+    """How far two float32 histograms of the same rows, summed in any two
+    orders, may lie apart, bucket by bucket.
+
+    Any order of summing m float32 terms lands within
+    ``gamma(m-1) * sum|x|`` of the exact sum, ``gamma(j) = j u / (1 - j u)``
+    with ``u = 2^-24`` (Higham, *Accuracy and Stability of Numerical
+    Algorithms*, 4.2), so two orders lie within twice that.  A bucket of
+    0 or 1 rows has bound 0: one add to zero is exact.
+
+    Returns:
+      (L, n_nodes, f, nbins, 2) float64, shaped like the histogram.
+    """
+    node = _parent_ids(node_per_level) if child else node_per_level
+    kw = dict(n_nodes=n_nodes, nbins=nbins)
+    abs_sum = hist_levels_ref(bins, node, gh.abs(), **kw).double()
+    m = hist_levels_ref(bins, node, torch.ones_like(gh), **kw).double()
+    gamma = (m - 1).clamp(min=0) * 2.0 ** -24
+    return 2 * gamma / (1 - gamma) * abs_sum
