@@ -42,8 +42,40 @@ Phases, each printing one JSON line:
 7. train_check -- a 4000 x 6 fit (6 trees, depth 4, k = 16) on the card
    and on the CPU from one injected grid, direct and subtract: structure
    exact, leaves within 1e-5;
-8. kernels -- one line listing every ported kernel with its launches,
+8. attn_check -- the flash-attention kernel held against its plain
+   version (``ref.attention_ref``) on the card: MHA, GQA and MQA; causal,
+   window 128 and none; head dims 32, 64, 80, 128; 128 and 384 tokens;
+   float32 within 2e-4 abs and rel (the JAX package's tolerance) and
+   bf16 within that plus one bf16 rounding step (2^-7 of the value);
+   and the prefill's own shape, q (2, 32, 4096, 128), k/v (2, 2, 4096,
+   128), causal, bf16;
+9. attn_time -- the kernel at that shape with CUDA events, beside the
+   plain version, ``F.scaled_dot_product_attention`` (the library
+   yardstick, never called by the port) and the bound;
+10. prefill -- glm4-9b at full width and depth (40 layers, random bf16
+   weights from a seeded generator on the card) through
+   ``make_prefill_step``: one warm-up request, then 4 requests of 2 x
+   4096 tokens; p50 ms, tokens/s, peak memory, 40 flash launches a
+   request (counts reset just before, read just after), the greedy next
+   token;
+11. prefill_profile -- one request's device time by kernel (flash,
+   GEMMs, the rest) and the device's idle share;
+12. prefill_check -- glm4-9b at full width with 2 layers, 1 x 256 tokens,
+   ``attn_impl="pallas"``, the card against the port on the CPU with the
+   same weights.  With float32 activations (the same modules, no bf16
+   rounding between them) the logits agree within 2e-4 abs and rel.  The
+   prefill step itself (bf16) rounds differently on the two sides, so
+   each side is measured against the CPU's float32 logits: the card's
+   bf16 logits lie within twice the CPU's own bf16 error of the CPU's,
+   the card's own error is at most 1.25 times the CPU's, and a position
+   whose argmax differs is a near tie (within twice that error in the
+   float32 logits);
+13. kernels -- one line listing every ported kernel with its launches,
    error, times and bound.
+
+The new phases print their seconds.  Precision: float32 matrix products
+in full float32 (``allow_tf32`` off) and bf16 products reduced in float32
+(``allow_bf16_reduced_precision_reduction`` off), set and printed first.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
 script exits non-zero before any result.  Every check raises on failure.
@@ -63,6 +95,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 
 TREES, DEPTH, FEATURES, CANDIDATES = 500, 6, 32, 32
 MICROBATCH, REQUESTS, WARMUP_REQUESTS, TREE_CHUNK = 4096, 32, 2, 25
@@ -72,6 +105,12 @@ TRAIN_ROWS, HOLDOUT_ROWS, TRAIN_FEATURES = 1_000_000, 100_000, 28
 TRAIN_TREES, TRAIN_DEPTH, TRAIN_CANDIDATES = 20, 6, 32
 TRAIN_NODES = 2 ** (TRAIN_DEPTH - 1)          # frontier width
 TRAIN_BINS = TRAIN_CANDIDATES + 1
+
+# prefill: glm4-9b; the dry-run's prefill_32k shape (32 x 32768) cut to
+# 2 x 4096, since its bf16 logits alone would be 318 GB
+LM_ARCH, LM_BATCH, LM_SEQ, LM_REQUESTS = "glm4-9b", 2, 4096, 4
+ATTN_F32_TOL = 2e-4               # the JAX package's flash-attention test
+BF16_STEP = 2.0 ** -7             # one bf16 rounding: at most 2^-7 of x
 
 
 def emit(phase: str, **fields) -> None:
@@ -234,6 +273,49 @@ def by_kernel(prof, per: int, key: str, ops: bool = False) -> list[dict]:
     return rows
 
 
+def attn_bound_ms(b, hq, hkv, sq, sk, d, itemsize, causal) -> tuple:
+    """The unmasked (query, key) pairs at 4d operations each over the
+    tensor cores' bf16 rate, against q, k, v read once and o written
+    once over the HBM rate."""
+    pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * sk)
+    t_ops = pairs * 4 * d / BF16_OPS_PER_S * 1e3
+    nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attn_within(got, want) -> tuple[bool, float]:
+    """Kernel against plain version: float32 within 2e-4 abs and rel;
+    bf16 within that plus one bf16 rounding step of the value, since both
+    round a float32 result (of their own order of adds) to bf16."""
+    g, w = got.float(), want.float()
+    rtol = ATTN_F32_TOL + (BF16_STEP if got.dtype == torch.bfloat16 else 0.0)
+    diff = (g - w).abs()
+    ok = bool((diff <= ATTN_F32_TOL + rtol * w.abs()).all())
+    return ok, float(diff.max())
+
+
+def float32_logits(model, cfg, tokens) -> torch.Tensor:
+    """The prefill's logits with float32 activations: the same modules and
+    weights (bf16 weights widen exactly), no bf16 rounding in between."""
+    with torch.inference_mode():
+        t = torch.as_tensor(tokens, device=model.embed.table.device)
+        x = model.embed(t, dtype=torch.float32)
+        positions = torch.arange(t.shape[1], device=x.device).expand(*t.shape)
+        x, _ = model.backbone(cfg, x, positions)
+        return model.embed.unembed(model.ln_f(x)).float().cpu()
+
+
+def argmax_agreement(got, want) -> tuple[float, torch.Tensor, torch.Tensor]:
+    """Share of positions whose argmax agrees, and where they differ the
+    gap in ``want`` between its top token and ``got``'s."""
+    a_got, a_want = got.argmax(-1), want.argmax(-1)
+    differ = a_got != a_want
+    gap = (want.gather(-1, a_want[..., None])
+           - want.gather(-1, a_got[..., None]))[..., 0]
+    return 1.0 - float(differ.float().mean()), differ, gap
+
+
 def logloss(margin, y) -> float:
     return float(torch.nn.functional.binary_cross_entropy_with_logits(
         margin, y))
@@ -246,10 +328,17 @@ def main() -> int:
         return 1
 
     from repro_torch import GBDTConfig, accuracy, fit
+    from repro_torch.configs import get_config
     from repro_torch.core import proposal, tree as tree_lib
     from repro_torch.data import tabular
     from repro_torch.kernels import _build, hist, ref, split_gain, traverse
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch import serve_gbdt
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # 1. device -----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -261,7 +350,11 @@ def main() -> int:
     print(smi_line, flush=True)
     emit("device", kind=kind, nvidia_smi=smi_line,
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda,
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         allow_bf16_reduced_precision_reduction=(
+             torch.backends.cuda.matmul
+             .allow_bf16_reduced_precision_reduction))
 
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -540,7 +633,7 @@ def main() -> int:
     x_tr, y_tr = x_dev[:TRAIN_ROWS], y_dev[:TRAIN_ROWS]
     x_ho, y_ho = x_dev[TRAIN_ROWS:], y_dev[TRAIN_ROWS:]
     counters = (hist, "launches"), (hist, "left_launches"), \
-        (split_gain, "launches"), (traverse, "launches")
+        (split_gain, "launches"), (traverse, "launches"), (flash, "launches")
 
     def reset():
         for mod, name in counters:
@@ -564,11 +657,11 @@ def main() -> int:
                     torch.Generator(device="cuda").manual_seed(0),
                     device="cuda")
         wall = time.perf_counter() - t0
-        n_hist, n_left, n_gain, n_trav = read()
+        n_hist, n_left, n_gain, n_trav, n_flash = read()
         per_fit = TRAIN_TREES * TRAIN_DEPTH
         check((n_left if subtract else n_hist) == per_fit
               and (n_hist if subtract else n_left) == 0
-              and n_gain == per_fit and n_trav == 0,
+              and n_gain == per_fit and n_trav == 0 and n_flash == 0,
               f"subtract={subtract}: launches hist {n_hist}, hist_left "
               f"{n_left}, split_gain {n_gain}, traverse {n_trav}; want "
               f"{per_fit} of the fit's histogram mode and {per_fit} "
@@ -648,7 +741,218 @@ def main() -> int:
              n_trees=6, max_depth=4, n_candidates=16, structure_equal=True,
              leaf_max_abs_err=leaf_err)
 
-    # 8. kernels ----------------------------------------------------------
+    # 8. attn_check -------------------------------------------------------
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def attn_case(b, hq, hkv, sq, d, dtype):
+        return [torch.randn((b, h, sq, d), generator=gen, device="cuda")
+                .to(dtype) for h in (hq, hkv, hkv)]
+
+    attn_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_attn = 0
+    for hq, hkv in ((4, 4), (8, 2), (8, 1)):          # MHA, GQA, MQA
+        for causal, window in ((True, 0), (True, 128), (False, 0)):
+            for d in flash.HEAD_DIMS:
+                for sq in (128, 384):
+                    for dtype in attn_err:
+                        q, k, v = attn_case(2, hq, hkv, sq, d, dtype)
+                        got = flash.flash_attention_cuda(
+                            q, k, v, causal=causal, window=window)
+                        want = ref.attention_ref(q, k, v, causal=causal,
+                                                 window=window)
+                        torch.cuda.synchronize()
+                        ok, err = attn_within(got, want)
+                        check(ok and got.dtype == dtype
+                              and got.shape == q.shape,
+                              f"flash kernel != plain version (heads "
+                              f"{hq}:{hkv}, causal={causal}, window="
+                              f"{window}, d={d}, s={sq}, {dtype}, "
+                              f"max_abs_err={err})")
+                        attn_err[dtype] = max(attn_err[dtype], err)
+                        n_attn += 1
+    lm_cfg = get_config(LM_ARCH)
+    hq, hkv, d = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.head_dim
+    q, k, v = attn_case(LM_BATCH, hq, hkv, LM_SEQ, d, torch.bfloat16)
+    got = flash.flash_attention_cuda(q, k, v, causal=True)
+    want = ref.attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ok, slice_err = attn_within(got, want)
+    check(ok, f"flash kernel != plain version at the prefill shape "
+          f"(max_abs_err={slice_err})")
+    del got, want
+    emit("attn_check", cases=n_attn + 1, within_tolerance=True,
+         tolerance={"f32": {"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
+                    "bf16": {"abs": ATTN_F32_TOL,
+                             "rel": ATTN_F32_TOL + BF16_STEP}},
+         max_abs_err={"f32": attn_err[torch.float32],
+                      "bf16": attn_err[torch.bfloat16],
+                      "prefill_shape_bf16": slice_err},
+         seconds=time.perf_counter() - t_phase)
+
+    # 9. attn_time --------------------------------------------------------
+    t_phase = time.perf_counter()
+    ms, issue_ms = cuda_ms(lambda: flash.flash_attention_cuda(
+        q, k, v, causal=True), iters=10, warmup=2)
+    plain_ms, _ = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True),
+                          iters=3, warmup=1)
+    library_ms, _ = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=10, warmup=2)
+    b_ms, b_by = attn_bound_ms(LM_BATCH, hq, hkv, LM_SEQ, LM_SEQ, d, 2, True)
+    attn_timing = dict(ms=ms, issue_ms=issue_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    emit("attn_time", kernel="flash_attention",
+         shape=dict(q=list(q.shape), kv=list(k.shape), causal=True,
+                    dtype="bf16"),
+         kernel_us=ms * 1e3, **attn_timing,
+         seconds=time.perf_counter() - t_phase)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # 10. prefill ---------------------------------------------------------
+    t_phase = time.perf_counter()
+    model = init_params(lm_cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t_phase
+    step = make_prefill_step(lm_cfg)
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(0, lm_cfg.vocab_size, size=(LM_BATCH, LM_SEQ))
+                for _ in range(LM_REQUESTS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    live_before = torch.cuda.memory_allocated()        # weights and leftovers
+    logits = step(model, {"tokens": requests[0]})       # warm-up
+    torch.cuda.synchronize()
+    del logits
+    walls, next_tokens = [], []
+    reset()
+    for tokens in requests[1:]:
+        t0 = time.perf_counter()
+        logits = step(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(logits.shape == (LM_BATCH, LM_SEQ, lm_cfg.vocab_size)
+              and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()),
+              f"prefill logits {tuple(logits.shape)} {logits.dtype}, or "
+              "not finite")
+        next_tokens.append(logits[:, -1].argmax(-1).tolist())
+        del logits
+    n_hist, n_left, n_gain, n_trav, n_flash = read()
+    lm_launches = n_flash
+    check(n_flash == lm_cfg.n_layers * LM_REQUESTS
+          and n_hist + n_left + n_gain + n_trav == 0,
+          f"{n_flash} flash launches for {LM_REQUESTS} requests, want "
+          f"{lm_cfg.n_layers} a request (and no other kernel: hist {n_hist}, "
+          f"hist_left {n_left}, split_gain {n_gain}, traverse {n_trav})")
+    p50 = float(np.median(walls))
+    emit("prefill", arch=LM_ARCH, n_layers=lm_cfg.n_layers,
+         d_model=lm_cfg.d_model, n_heads=hq, n_kv_heads=hkv, head_dim=d,
+         d_ff=lm_cfg.d_ff, vocab_size=lm_cfg.vocab_size,
+         params=sum(p.numel() for p in model.parameters()),
+         weights="random bf16, seed 0", batch=LM_BATCH, seq=LM_SEQ,
+         reduced=["shape: prefill_32k 32 x 32768 -> 2 x 4096 tokens"],
+         requests=LM_REQUESTS, warmup_requests=1, attn_impl=lm_cfg.attn_impl,
+         init_seconds=init_seconds, request_ms=[w * 1e3 for w in walls],
+         p50_ms=p50 * 1e3, tokens_per_s=LM_BATCH * LM_SEQ / p50,
+         memory_allocated_before_gb=live_before / 1e9,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         flash_launches=n_flash, flash_launches_per_request=n_flash
+         / LM_REQUESTS, next_tokens=next_tokens,
+         seconds=time.perf_counter() - t_phase)
+
+    # 11. prefill_profile ---------------------------------------------------
+    t_phase = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        logits = step(model, {"tokens": requests[1]})
+        torch.cuda.synchronize()
+    del logits
+    rows = by_kernel(prof, 1, "request")
+    groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for r in rows:
+        name = r["name"].lower()
+        group = ("flash_attention" if "flash_kernel" in name else "gemm"
+                 if any(t in name for t in ("gemm", "xmma", "cutlass",
+                                            "nvjet", "sm90")) else "other")
+        groups[group] += r["device_us_per_request"] / 1e3
+    busy_ms = sum(groups.values())
+    emit("prefill_profile", requests=1, wall_ms_per_request=p50 * 1e3,
+         device_ms_per_request=busy_ms,
+         device_idle_share=1 - busy_ms / (p50 * 1e3),
+         by_group_ms=groups,
+         by_group_share={g: t / busy_ms for g, t in groups.items()},
+         by_kernel=rows[:10], seconds=time.perf_counter() - t_phase)
+    del model, prof
+    torch.cuda.empty_cache()
+
+    # 12. prefill_check ---------------------------------------------------
+    t_phase = time.perf_counter()
+    check_cfg = dataclasses.replace(lm_cfg, n_layers=2, attn_impl="pallas")
+    model = init_params(check_cfg, generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    tokens = rng.integers(0, check_cfg.vocab_size, size=(1, 256))
+    step2 = make_prefill_step(check_cfg)
+    flash.launches = 0
+    card = step2(model, {"tokens": tokens}).float().cpu()
+    card_f32 = float32_logits(model, check_cfg, tokens)
+    card_launches = flash.launches
+    check(card_launches == 2 * check_cfg.n_layers,
+          f"prefill_check: {card_launches} flash launches on the card, want "
+          f"{check_cfg.n_layers} a run")
+    model.to("cpu")
+    t_cpu = time.perf_counter()
+    on_cpu = step2(model, {"tokens": tokens}).float()
+    cpu_f32 = float32_logits(model, check_cfg, tokens)
+    cpu_seconds = time.perf_counter() - t_cpu
+    check(flash.launches == card_launches,
+          "prefill_check: the CPU run launched the flash kernel")
+    check(bool(torch.isfinite(card).all()), "prefill_check: card logits "
+          "not finite")
+    # float32 activations: the kernel's path against the plain one
+    f32_err = float((card_f32 - cpu_f32).abs().max())
+    check(bool(((card_f32 - cpu_f32).abs()
+                <= ATTN_F32_TOL + ATTN_F32_TOL * cpu_f32.abs()).all()),
+          f"prefill_check: float32 logits on the card differ from the "
+          f"CPU's beyond {ATTN_F32_TOL} (max_abs_err={f32_err})")
+    # bf16, the prefill step itself: each side against the float32 logits
+    cpu_err = float((on_cpu - cpu_f32).abs().max())
+    card_err = float((card - cpu_f32).abs().max())
+    logit_err = float((card - on_cpu).abs().max())
+    agree, differ, _ = argmax_agreement(card, on_cpu)
+    card_vs_f32, _, gap_f32 = argmax_agreement(card, cpu_f32)
+    ties_ok = bool((gap_f32[differ].abs() <= 2 * cpu_err).all()) \
+        if bool(differ.any()) else True
+    check(logit_err <= 2 * cpu_err and card_err <= 1.25 * cpu_err
+          and ties_ok,
+          f"prefill_check: bf16 logits on the card differ from the CPU's "
+          f"by {logit_err} (bound {2 * cpu_err}: twice the CPU's own bf16 "
+          f"error {cpu_err}); the card's error {card_err} (bound "
+          f"{1.25 * cpu_err}); argmax agreement {agree}, near ties "
+          f"{ties_ok}")
+    emit("prefill_check", arch=LM_ARCH, n_layers=check_cfg.n_layers,
+         tokens=list(tokens.shape), attn_impl=check_cfg.attn_impl,
+         flash_launches=card_launches,
+         f32_logits_max_abs_err=f32_err,
+         f32_tolerance={"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
+         logits_max_abs_err=logit_err,
+         tolerance={"abs": 2 * cpu_err,
+                    "rule": "twice the CPU's bf16 error against its "
+                            "float32 logits"},
+         bf16_err_vs_f32={"card": card_err, "cpu": cpu_err,
+                          "card_bound": 1.25 * cpu_err},
+         argmax_agreement=agree,
+         argmax_agreement_vs_f32={
+             "card": card_vs_f32,
+             "cpu": argmax_agreement(on_cpu, cpu_f32)[0]},
+         max_argmax_tie_gap_f32=float(gap_f32[differ].abs().max())
+         if bool(differ.any()) else 0.0,
+         cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_phase)
+    del model, card, on_cpu, card_f32, cpu_f32
+
+    # 13. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
         kernels.append({
@@ -695,6 +999,20 @@ def main() -> int:
         "bound_ms": gain_timing["bound_ms"],
         "bound_by": gain_timing["bound_by"],
         "library_ms": None,
+    })
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:70",
+        "launches": lm_launches,
+        "launches_per_request": lm_cfg.n_layers,
+        "max_abs_err": slice_err,
+        "ms": attn_timing["ms"],
+        "plain_ms": attn_timing["plain_ms"],
+        "bound_ms": attn_timing["bound_ms"],
+        "bound_by": attn_timing["bound_by"],
+        "library_ms": attn_timing["library_ms"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

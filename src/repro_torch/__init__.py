@@ -12,7 +12,10 @@ checkpoint of either package) through a hand-written traversal kernel::
     margins = model.predict(x, output="margin")
     model = repro_torch.load_gbdt("model.npz")
 
-Entry points run on the card unless the caller passes ``device="cpu"``.
+It also prefills the dense LM family (``repro_torch.models``,
+``repro_torch.launch.steps.make_prefill_step``) through a hand-written
+flash-attention kernel.  Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from .checkpoint import load_gbdt, model_from_numpy, save_gbdt

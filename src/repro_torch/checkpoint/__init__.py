@@ -1,5 +1,8 @@
-"""Checkpoint substrate: the serving checkpoint shared with the JAX package."""
+"""Checkpoint substrate: the serving checkpoint and the LM's flat-path
+checkpoint, both shared with the JAX package."""
 
 from .gbdt import load_gbdt, model_from_numpy, save_gbdt
+from .npz import load_checkpoint, params_from_numpy, save_checkpoint
 
-__all__ = ["load_gbdt", "model_from_numpy", "save_gbdt"]
+__all__ = ["load_checkpoint", "load_gbdt", "model_from_numpy",
+           "params_from_numpy", "save_checkpoint", "save_gbdt"]

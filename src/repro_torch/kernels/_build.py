@@ -8,7 +8,8 @@ call to :func:`library` builds every source once per process, one
 
 The flags are fixed: ``sm_90a`` (Hopper), ``-O3``, and no
 ``--use_fast_math``, which may rewrite the ``value <= cmp`` comparisons
-that route NaN rows.
+that route NaN rows and would swap the softmax's ``expf`` for a faster,
+less accurate one.
 """
 
 from __future__ import annotations

@@ -1,0 +1,115 @@
+"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
+The kernel takes CUDA tensors only: this wrapper checks device, dtype,
+shape, contiguity and alignment, raises on anything the kernel does not
+take, and never falls back to the plain version (``ref.attention_ref``).
+The CPU path is chosen by ``ops.flash_attention`` from the tensor's
+device.  The JAX kernel has no VJP, so neither has this one: an input
+that requires a gradient is refused.
+
+``launches`` counts the kernel launches of this process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import check_attention_lengths
+
+HEAD_DIMS = (32, 64, 80, 128)   # the kernel's instantiations
+SEQ_MULTIPLE = 128              # as the JAX kernel asserts
+DTYPES = (torch.float32, torch.bfloat16)
+
+launches = 0
+
+_fns: dict = {}
+
+
+def _kernel():
+    if not _fns:
+        fn = _build.library("flash_attention").flash_attention
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns["flash_attention"] = fn
+    return _fns["flash_attention"]
+
+
+def _check(q, k, v, window):
+    name = "flash_attention_cuda"
+    for t, arg in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}; it must be a "
+                             "CUDA tensor")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{name}: {arg} must be float32 or bfloat16, got "
+                            f"{t.dtype}")
+        if t.ndim != 4:
+            raise ValueError(f"{name}: {arg} must be (batch, heads, seq, d), "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} is not 16-byte aligned")
+        if t.requires_grad:
+            raise ValueError(f"{name}: {arg} requires grad; the kernel has "
+                             "no backward")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{name}: q, k and v differ in dtype ({q.dtype}, "
+                        f"{k.dtype}, {v.dtype})")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k and v lie on different devices")
+    b, hq, sq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    hkv, sk = k.shape[1], k.shape[2]
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"{name}: q_heads {hq} is not a multiple of "
+                         f"kv_heads {hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not built; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if sq % SEQ_MULTIPLE or sk % SEQ_MULTIPLE:
+        raise ValueError(f"{name}: sequence lengths must be multiples of "
+                         f"{SEQ_MULTIPLE}, got sq={sq}, sk={sk}")
+    if window < 0:
+        raise ValueError(f"{name}: window must be >= 0, got {window}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """Blockwise attention in one launch.
+
+    Same arguments and result as :func:`repro_torch.kernels.ref.
+    attention_ref`, within float32 rounding: q (batch, q_heads, sq, d),
+    k and v (batch, kv_heads, sk, d), contiguous on one CUDA device, all
+    float32 or all bfloat16; ``d`` in :data:`HEAD_DIMS`; ``sq`` and
+    ``sk`` multiples of 128.  Returns (batch, q_heads, sq, d) in q's
+    dtype.
+    """
+    global launches
+    _check(q, k, v, window)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    check_attention_lengths(sq, sk, causal=causal, window=window)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), int(q.dtype == torch.bfloat16), b, hq,
+                        hkv, sq, sk, d, 1.0 / d ** 0.5, int(causal),
+                        int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError_t {err}")
+    launches += 1
+    return out

@@ -18,7 +18,8 @@ import dataclasses
 
 import torch
 
-from . import hist, ref, split_gain as split_gain_kernel, traverse
+from . import flash_attention as flash_kernel, hist, ref, \
+    split_gain as split_gain_kernel, traverse
 
 BACKENDS = ("auto", "cuda", "ref")
 _JAX_BACKENDS = {"pallas": "cuda", "interpret": "ref", "packed": "ref"}
@@ -193,3 +194,20 @@ def traverse_chunk(values: torch.Tensor, feature: torch.Tensor,
                                             max_depth=max_depth)
     return ref.traverse_chunk_ref(values, feature, cmp, leaf,
                                   max_depth=max_depth)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    backend: str = "auto") -> torch.Tensor:
+    """Blockwise attention with GQA and an optional sliding window.
+
+    q (batch, q_heads, s, d), k and v (batch, kv_heads, s, d).  A CUDA
+    tensor goes to the hand-written kernel (one launch), a CPU tensor to
+    ``ref.attention_ref``; the two agree within float32 rounding.  A
+    causal or window mask over queries and keys of different lengths
+    raises on both (see ``ref.check_attention_lengths``).
+    """
+    if resolve(backend, q.device) == "cuda":
+        return flash_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                                 window=window)
+    return ref.attention_ref(q, k, v, causal=causal, window=window)

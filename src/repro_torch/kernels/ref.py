@@ -274,3 +274,56 @@ def hist_rounding_bound(bins: torch.Tensor, node_per_level: torch.Tensor,
     m = hist_levels_ref(bins, node, torch.ones_like(gh), **kw).double()
     gamma = (m - 1).clamp(min=0) * 2.0 ** -24
     return 2 * gamma / (1 - gamma) * abs_sum
+
+
+def check_attention_lengths(sq: int, sk: int, *, causal: bool,
+                            window: int) -> None:
+    """Refuse a mask over queries and keys of different lengths.
+
+    There the JAX package's two attention functions disagree: its kernel
+    counts query positions from 0, its oracle ``attention_ref``
+    right-aligns them (``qpos = arange(sq) + (sk - sq)``, the cache case).
+    The port takes neither side silently.
+    """
+    if sq != sk and (causal or window > 0):
+        raise ValueError(
+            f"a causal or window mask needs as many queries as keys, got "
+            f"sq={sq}, sk={sk}: the JAX kernel and the JAX oracle place the "
+            "queries differently there")
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Naive float32 attention with GQA and causal / sliding-window masks.
+
+    Mirrors the JAX package's ``attention_ref``: query head ``h`` reads KV
+    head ``h // g`` (``g = q_heads // kv_heads``, no repeated K/V), scores
+    in float32 divided by ``d ** 0.5``, masked keys at -inf, a row with no
+    kept key gives 0, the output in q's dtype.  Raises where queries and
+    keys differ in length under a mask (:func:`check_attention_lengths`).
+
+    Args:
+      q: (batch, q_heads, sq, d).
+      k, v: (batch, kv_heads, sk, d).
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    check_attention_lengths(sq, sk, causal=causal, window=window)
+    if hq % hkv:
+        raise ValueError(f"q_heads {hq} is not a multiple of kv_heads {hkv}")
+    g = hq // hkv
+    qg = q.float().reshape(b, hkv, g * sq, d)
+    s = (qg @ k.float().transpose(-1, -2)).reshape(b, hkv, g, sq, sk)
+    s = s / (d ** 0.5)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    p = torch.softmax(s.masked_fill_(~mask, float("-inf")), dim=-1)
+    del s
+    p = p.masked_fill_(torch.isnan(p), 0.0)
+    out = p.reshape(b, hkv, g * sq, sk) @ v.float()
+    return out.reshape(b, hq, sq, d).to(q.dtype)

@@ -10,17 +10,26 @@ split gain: ``torch.equal`` (pure selects; the same float32 operations in
 the same order).  Histograms: ``torch.equal`` on integer-valued g/h,
 whose float sums are exact in any order below 2^24, and within
 ``ref.hist_rounding_bound`` on real g/h, since atomics add in no fixed
-order.
+order.  Flash attention: float32 within 2e-4 abs and rel (the JAX
+package's tolerance for its kernel against its oracle); bf16 within that
+plus one bf16 rounding step (2^-7 of the value), since kernel and plain
+version each round a float32 result of their own order of adds.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import GBDTConfig, fit
+from repro_torch.configs import get_config
 from repro_torch.core.proposal import random_candidates
-from repro_torch.kernels import hist, ref, split_gain, traverse
+from repro_torch.kernels import flash_attention as flash, hist, ops, ref, \
+    split_gain, traverse
 from repro_torch.launch.serve_gbdt import synthetic_gbdt
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import init_params
 
 
 @pytest.fixture
@@ -256,3 +265,101 @@ def test_fit_on_card_matches_cpu(cuda, subtract):
     assert torch.equal(fa.threshold.cpu(), fb.threshold)
     torch.testing.assert_close(fa.leaf_value.cpu(), fb.leaf_value,
                                rtol=0, atol=1e-5)
+
+
+def _attn(gen, b, hq, hkv, s, d, dtype, sk=None):
+    sk = s if sk is None else sk
+    return [torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype)
+            for h, n in ((hq, s), (hkv, sk), (hkv, sk))]
+
+
+def _attn_close(got, want):
+    rtol = 2e-4 + (2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_flash_kernel_matches_plain_version(cuda, d, dtype):
+    """MHA, GQA, MQA and a group of 16; causal, window 128 and 1, none;
+    one and three query tiles of 128; one launch a call."""
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for b, hq, hkv in ((2, 4, 4), (1, 8, 2), (1, 4, 1), (1, 16, 1)):
+        for causal, window in ((True, 0), (True, 128), (True, 1),
+                               (False, 0), (False, 128)):
+            for s in (128, 384):
+                q, k, v = _attn(gen, b, hq, hkv, s, d, dtype)
+                before = flash.launches
+                got = ops.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+                want = ref.attention_ref(q, k, v, causal=causal,
+                                         window=window)
+                torch.cuda.synchronize()
+                assert flash.launches == before + 1
+                assert got.dtype == dtype and got.shape == q.shape
+                _attn_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_unequal_lengths_without_a_mask(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = _attn(gen, 1, 8, 2, 128, 64, torch.float32, sk=384)
+    _attn_close(flash.flash_attention_cuda(q, k, v, causal=False),
+                ref.attention_ref(q, k, v, causal=False))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = _attn(gen, 1, 4, 2, 128, 64, torch.float32)
+    before = flash.launches
+    cases = [
+        ((q[0], k, v), {}, ValueError),                       # 3-D q
+        ((q.half(), k.half(), v.half()), {}, TypeError),      # float16
+        ((q, k.bfloat16(), v.bfloat16()), {}, TypeError),     # mixed dtypes
+        ((q.clone().requires_grad_(True), k, v), {},
+         ValueError),                                         # no backward
+        ((q[:, :, :100].contiguous(), k, v), {}, ValueError),  # sq % 128
+        (_attn(gen, 1, 4, 2, 128, 96, torch.float32), {},
+         ValueError),                                         # head dim 96
+        ((q.transpose(2, 3).contiguous().transpose(2, 3), k, v), {},
+         ValueError),                                         # not contiguous
+        (_attn(gen, 1, 3, 2, 128, 64, torch.float32), {},
+         ValueError),                                         # 3 q : 2 kv
+        (_attn(gen, 1, 4, 2, 128, 64, torch.float32, sk=256),
+         dict(causal=True), ValueError),                      # sq != sk, mask
+        ((q, k, v), dict(window=-1), ValueError),
+    ]
+    for args, kw, err in cases:
+        with pytest.raises(err):
+            flash.flash_attention_cuda(*args, **kw)
+    assert flash.launches == before
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), backend="cuda")
+    with pytest.raises(ValueError, match="runs on CPU tensors"):
+        ops.flash_attention(q, k, v, backend="ref")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_impl", ["pallas", "xla_chunked"])
+def test_prefill_on_card_matches_cpu(cuda, attn_impl):
+    """The SMOKE glm4-9b prefill on the card and on the CPU, same weights:
+    logits within 3e-2 abs and rel (bf16 products summed in other orders;
+    the JAX package's bf16 attention tolerance); ``pallas`` launches the
+    kernel once a layer, ``xla_chunked`` at 128 tokens takes the naive
+    path and none."""
+    cfg = dataclasses.replace(get_config("glm4-9b", smoke=True),
+                              attn_impl=attn_impl)
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device=cuda)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
+    step = make_prefill_step(cfg)
+    before = flash.launches
+    card = step(model, {"tokens": tokens}).float().cpu()
+    assert flash.launches - before == (cfg.n_layers
+                                       if attn_impl == "pallas" else 0)
+    on_cpu = step(model.to("cpu"), {"tokens": tokens}).float()
+    torch.testing.assert_close(card, on_cpu, rtol=3e-2, atol=3e-2)
