@@ -9,7 +9,10 @@ Phases, each printing one JSON line:
    ``nvidia-smi`` reports them (also printed as a line of their own);
 2. build   -- every CUDA kernel built from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together),
-   timed as set-up;
+   timed as set-up; the Hopper flash kernel's registers, spills and any
+   ptxas warning about it (``-Xptxas -v``), and the ``HGMMA`` (wgmma)
+   and ``UTMALDG`` (TMA load) instructions in ``cuobjdump -sass`` of
+   ``libflash_attention.so`` (null where ``cuobjdump`` is missing);
 3. check   -- each kernel held against its plain PyTorch version on the
    card over a sweep of shapes: traversal and split gain with
    ``torch.equal`` (bit-identical; NaN rows, passthrough padding trees,
@@ -42,22 +45,25 @@ Phases, each printing one JSON line:
 7. train_check -- a 4000 x 6 fit (6 trees, depth 4, k = 16) on the card
    and on the CPU from one injected grid, direct and subtract: structure
    exact, leaves within 1e-5;
-8. attn_check -- the flash-attention kernel held against its plain
+8. attn_check -- the flash-attention kernels held against their plain
    version (``ref.attention_ref``) on the card: MHA, GQA and MQA; causal,
-   window 128 and none; head dims 32, 64, 80, 128; 128 and 384 tokens;
-   float32 within 2e-4 abs and rel (the JAX package's tolerance) and
-   bf16 within that plus one bf16 rounding step (2^-7 of the value);
-   and the prefill's own shape, q (2, 32, 4096, 128), k/v (2, 2, 4096,
-   128), causal, bf16;
+   window 128, window 200 (not a tile multiple) and none; head dims 32,
+   64, 80, 128; 128 and 384 tokens, and 2048 (16 K/V tiles); float32
+   within 2e-4 abs and rel (the JAX package's tolerance) and bf16 within
+   that plus one bf16 rounding step (2^-7 of the value) plus
+   ``ref.attention_rounding_bound`` (the Hopper kernel rounds P to bf16
+   before its product with V); and the prefill's own shape, q (2, 32,
+   4096, 128), k/v (2, 2, 4096, 128), causal, bf16;
 9. attn_time -- the kernel at that shape with CUDA events, beside the
    plain version, ``F.scaled_dot_product_attention`` (the library
-   yardstick, never called by the port) and the bound;
+   yardstick, never called by the port) and the bound; its TFLOP/s and
+   its share of the bound;
 10. prefill -- glm4-9b at full width and depth (40 layers, random bf16
    weights from a seeded generator on the card) through
    ``make_prefill_step``: one warm-up request, then 4 requests of 2 x
    4096 tokens; p50 ms, tokens/s, peak memory, 40 flash launches a
-   request (counts reset just before, read just after), the greedy next
-   token;
+   request, all of the Hopper kernel (counts reset just before, read
+   just after), the greedy next token;
 11. prefill_profile -- one request's device time by kernel (flash,
    GEMMs, the rest) and the device's idle share;
 12. prefill_check -- glm4-9b at full width with 2 layers, 1 x 256 tokens,
@@ -69,9 +75,11 @@ Phases, each printing one JSON line:
    bf16 logits lie within twice the CPU's own bf16 error of the CPU's,
    the card's own error is at most 1.25 times the CPU's, and a position
    whose argmax differs is a near tie (within twice that error in the
-   float32 logits);
+   float32 logits); the bf16 step on the Hopper kernel, the float32 one
+   on the CUDA-core kernel;
 13. kernels -- one line listing every ported kernel with its launches,
-   error, times and bound.
+   error, times and bound (and for flash attention the variant and its
+   SASS counts).
 
 The new phases print their seconds.  Precision: float32 matrix products
 in full float32 (``allow_tf32`` off) and bf16 products reduced in float32
@@ -83,6 +91,8 @@ script exits non-zero before any result.  Every check raises on failure.
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -111,6 +121,7 @@ TRAIN_BINS = TRAIN_CANDIDATES + 1
 LM_ARCH, LM_BATCH, LM_SEQ, LM_REQUESTS = "glm4-9b", 2, 4096, 4
 ATTN_F32_TOL = 2e-4               # the JAX package's flash-attention test
 BF16_STEP = 2.0 ** -7             # one bf16 rounding: at most 2^-7 of x
+SASS_OPS = ("HGMMA", "UTMALDG")   # wgmma and TMA loads in cuobjdump -sass
 
 
 def emit(phase: str, **fields) -> None:
@@ -284,15 +295,62 @@ def attn_bound_ms(b, hq, hkv, sq, sk, d, itemsize, causal) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attn_within(got, want) -> tuple[bool, float]:
-    """Kernel against plain version: float32 within 2e-4 abs and rel;
-    bf16 within that plus one bf16 rounding step of the value, since both
-    round a float32 result (of their own order of adds) to bf16."""
-    g, w = got.float(), want.float()
-    rtol = ATTN_F32_TOL + (BF16_STEP if got.dtype == torch.bfloat16 else 0.0)
-    diff = (g - w).abs()
-    ok = bool((diff <= ATTN_F32_TOL + rtol * w.abs()).all())
-    return ok, float(diff.max())
+def attn_within(got, q, k, v, **mask) -> tuple[bool, float, float]:
+    """Kernel against plain version on the same inputs: float32 within
+    2e-4 abs and rel; bf16 within that plus one bf16 rounding step of the
+    value, since both round a float32 result (of their own order of adds)
+    to bf16, plus ``ref.attention_rounding_bound``, since the Hopper
+    kernel rounds P to bf16 before its product with V.  Returns (within,
+    max abs error, largest share of the tolerance used)."""
+    from repro_torch.kernels import ref
+    want = ref.attention_ref(q, k, v, **mask).float()
+    tol = ATTN_F32_TOL + ATTN_F32_TOL * want.abs()
+    if got.dtype == torch.bfloat16:
+        tol += BF16_STEP * want.abs() + ref.attention_rounding_bound(
+            q, k, v, **mask)
+    diff = (got.float() - want).abs()
+    return (bool((diff <= tol).all()), float(diff.max()),
+            float((diff / tol).max()))
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spills of each kernel (by mangled name) from
+    ``-Xptxas -v`` output, and the ptxas warnings that name it
+    (``setmaxnreg ignored``, ``wgmma ... serialized``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"warnings": []}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    for line in log.splitlines():
+        if "arning" in line or "C75" in line:
+            for n in out:
+                if n in line:
+                    out[n]["warnings"].append(line.strip())
+    return out
+
+
+def sass_counts(lib: Path) -> dict | None:
+    """Instructions of ``SASS_OPS`` in ``cuobjdump -sass`` of ``lib``;
+    None where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
 
 
 def float32_logits(model, cfg, tokens) -> torch.Tensor:
@@ -359,12 +417,22 @@ def main() -> int:
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build_all()
-    ptxas = {name: [ln.strip() for ln in
-                    (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name in libs}
-    emit("build", seconds=time.perf_counter() - t0, libraries=sorted(libs),
-         ptxas=ptxas)
+    build_seconds = time.perf_counter() - t0
+    ptxas = {name: ptxas_report(
+        (_build.BUILD_DIR / f"{name}.log").read_text()) for name in libs}
+    wgmma_ptxas = {k: v for k, v in ptxas["flash_attention"].items()
+                   if "flash_kernel_wgmma" in k}
+    flash_sass = sass_counts(_build.BUILD_DIR / "libflash_attention.so")
+    check(len(wgmma_ptxas) == len(flash.WGMMA_HEAD_DIMS),
+          f"ptxas reported {sorted(wgmma_ptxas)}, want one Hopper flash "
+          f"kernel a head dim of {flash.WGMMA_HEAD_DIMS}")
+    check(flash_sass is None or all(flash_sass[op] > 0 for op in SASS_OPS),
+          f"libflash_attention.so lacks wgmma or TMA instructions: "
+          f"{flash_sass}")
+    emit("build", seconds=build_seconds, libraries=sorted(libs),
+         ptxas=ptxas, flash_sass_counts=flash_sass,
+         flash_sass_note=None if flash_sass is not None else
+         "cuobjdump not found: SASS not counted")
 
     # 3. check + 4. time -----------------------------------------------------
     rng = np.random.default_rng(0)
@@ -638,6 +706,8 @@ def main() -> int:
     def reset():
         for mod, name in counters:
             setattr(mod, name, 0)
+        for name in flash.launches_by_variant:
+            flash.launches_by_variant[name] = 0
 
     def read():
         return [getattr(mod, name) for mod, name in counters]
@@ -749,45 +819,55 @@ def main() -> int:
         return [torch.randn((b, h, sq, d), generator=gen, device="cuda")
                 .to(dtype) for h in (hq, hkv, hkv)]
 
-    attn_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    attn_err = dict.fromkeys(flash.VARIANTS, 0.0)
+    attn_share = dict.fromkeys(flash.VARIANTS, 0.0)   # of the tolerance
+    cases = [(2, hq, hkv, sq, causal, window)
+             for hq, hkv in ((4, 4), (8, 2), (8, 1))   # MHA, GQA, MQA
+             for causal, window in ((True, 0), (True, 128), (True, 200),
+                                    (False, 0))
+             for sq in (128, 384)]
+    cases += [(1, 4, 2, 2048, True, 0), (1, 4, 2, 2048, True, 200)]
     n_attn = 0
-    for hq, hkv in ((4, 4), (8, 2), (8, 1)):          # MHA, GQA, MQA
-        for causal, window in ((True, 0), (True, 128), (False, 0)):
-            for d in flash.HEAD_DIMS:
-                for sq in (128, 384):
-                    for dtype in attn_err:
-                        q, k, v = attn_case(2, hq, hkv, sq, d, dtype)
-                        got = flash.flash_attention_cuda(
-                            q, k, v, causal=causal, window=window)
-                        want = ref.attention_ref(q, k, v, causal=causal,
+    for b, hq, hkv, sq, causal, window in cases:
+        for d in flash.HEAD_DIMS:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = attn_case(b, hq, hkv, sq, d, dtype)
+                name = flash.variant(dtype, d)
+                before = flash.launches_by_variant[name]
+                got = flash.flash_attention_cuda(q, k, v, causal=causal,
                                                  window=window)
-                        torch.cuda.synchronize()
-                        ok, err = attn_within(got, want)
-                        check(ok and got.dtype == dtype
-                              and got.shape == q.shape,
-                              f"flash kernel != plain version (heads "
-                              f"{hq}:{hkv}, causal={causal}, window="
-                              f"{window}, d={d}, s={sq}, {dtype}, "
-                              f"max_abs_err={err})")
-                        attn_err[dtype] = max(attn_err[dtype], err)
-                        n_attn += 1
+                torch.cuda.synchronize()
+                ok, err, share = attn_within(got, q, k, v, causal=causal,
+                                             window=window)
+                check(ok and got.dtype == dtype and got.shape == q.shape
+                      and flash.launches_by_variant[name] == before + 1,
+                      f"flash kernel ({name}) != plain version (heads "
+                      f"{hq}:{hkv}, causal={causal}, window={window}, "
+                      f"d={d}, s={sq}, {dtype}, max_abs_err={err}, "
+                      f"share of tolerance {share})")
+                attn_err[name] = max(attn_err[name], err)
+                attn_share[name] = max(attn_share[name], share)
+                n_attn += 1
     lm_cfg = get_config(LM_ARCH)
     hq, hkv, d = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.head_dim
     q, k, v = attn_case(LM_BATCH, hq, hkv, LM_SEQ, d, torch.bfloat16)
+    lm_variant = flash.variant(q.dtype, d)
+    check(lm_variant == "wgmma_bf16", f"the prefill's attention would run "
+          f"on {lm_variant}, not the Hopper kernel")
     got = flash.flash_attention_cuda(q, k, v, causal=True)
-    want = ref.attention_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
-    ok, slice_err = attn_within(got, want)
+    ok, slice_err, slice_share = attn_within(got, q, k, v, causal=True)
     check(ok, f"flash kernel != plain version at the prefill shape "
-          f"(max_abs_err={slice_err})")
-    del got, want
+          f"(max_abs_err={slice_err}, share of tolerance {slice_share})")
+    del got
     emit("attn_check", cases=n_attn + 1, within_tolerance=True,
          tolerance={"f32": {"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
                     "bf16": {"abs": ATTN_F32_TOL,
-                             "rel": ATTN_F32_TOL + BF16_STEP}},
-         max_abs_err={"f32": attn_err[torch.float32],
-                      "bf16": attn_err[torch.bfloat16],
-                      "prefill_shape_bf16": slice_err},
+                             "rel": ATTN_F32_TOL + BF16_STEP,
+                             "plus": "ref.attention_rounding_bound"}},
+         max_abs_err={**attn_err, "prefill_shape_wgmma_bf16": slice_err},
+         max_share_of_tolerance={**attn_share,
+                                 "prefill_shape_wgmma_bf16": slice_share},
          seconds=time.perf_counter() - t_phase)
 
     # 9. attn_time --------------------------------------------------------
@@ -800,13 +880,16 @@ def main() -> int:
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), iters=10, warmup=2)
     b_ms, b_by = attn_bound_ms(LM_BATCH, hq, hkv, LM_SEQ, LM_SEQ, d, 2, True)
+    attn_flops = LM_BATCH * hq * LM_SEQ * (LM_SEQ + 1) // 2 * 4 * d
     attn_timing = dict(ms=ms, issue_ms=issue_ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-    emit("attn_time", kernel="flash_attention",
+    emit("attn_time", kernel="flash_attention", variant=lm_variant,
          shape=dict(q=list(q.shape), kv=list(k.shape), causal=True,
                     dtype="bf16"),
          kernel_us=ms * 1e3, **attn_timing,
-         seconds=time.perf_counter() - t_phase)
+         tflops=attn_flops / (ms * 1e-3) / 1e12,
+         library_tflops=attn_flops / (library_ms * 1e-3) / 1e12,
+         share_of_bound=b_ms / ms, seconds=time.perf_counter() - t_phase)
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -841,11 +924,14 @@ def main() -> int:
         del logits
     n_hist, n_left, n_gain, n_trav, n_flash = read()
     lm_launches = n_flash
+    lm_by_variant = dict(flash.launches_by_variant)
     check(n_flash == lm_cfg.n_layers * LM_REQUESTS
+          and lm_by_variant[lm_variant] == n_flash
           and n_hist + n_left + n_gain + n_trav == 0,
-          f"{n_flash} flash launches for {LM_REQUESTS} requests, want "
-          f"{lm_cfg.n_layers} a request (and no other kernel: hist {n_hist}, "
-          f"hist_left {n_left}, split_gain {n_gain}, traverse {n_trav})")
+          f"{n_flash} flash launches for {LM_REQUESTS} requests ("
+          f"{lm_by_variant}), want {lm_cfg.n_layers} a request, all "
+          f"{lm_variant} (and no other kernel: hist {n_hist}, hist_left "
+          f"{n_left}, split_gain {n_gain}, traverse {n_trav})")
     p50 = float(np.median(walls))
     emit("prefill", arch=LM_ARCH, n_layers=lm_cfg.n_layers,
          d_model=lm_cfg.d_model, n_heads=hq, n_kv_heads=hkv, head_dim=d,
@@ -859,7 +945,8 @@ def main() -> int:
          memory_allocated_before_gb=live_before / 1e9,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
          flash_launches=n_flash, flash_launches_per_request=n_flash
-         / LM_REQUESTS, next_tokens=next_tokens,
+         / LM_REQUESTS, flash_launches_by_variant=lm_by_variant,
+         next_tokens=next_tokens,
          seconds=time.perf_counter() - t_phase)
 
     # 11. prefill_profile ---------------------------------------------------
@@ -895,13 +982,17 @@ def main() -> int:
         device="cuda").manual_seed(1), device="cuda")
     tokens = rng.integers(0, check_cfg.vocab_size, size=(1, 256))
     step2 = make_prefill_step(check_cfg)
-    flash.launches = 0
+    reset()
     card = step2(model, {"tokens": tokens}).float().cpu()
     card_f32 = float32_logits(model, check_cfg, tokens)
     card_launches = flash.launches
-    check(card_launches == 2 * check_cfg.n_layers,
-          f"prefill_check: {card_launches} flash launches on the card, want "
-          f"{check_cfg.n_layers} a run")
+    check_by_variant = dict(flash.launches_by_variant)
+    check(card_launches == 2 * check_cfg.n_layers
+          and check_by_variant["wgmma_bf16"] == check_cfg.n_layers
+          and check_by_variant["cuda_core_f32"] == check_cfg.n_layers,
+          f"prefill_check: {card_launches} flash launches on the card "
+          f"({check_by_variant}), want {check_cfg.n_layers} a run: the bf16 "
+          "run on the Hopper kernel, the float32 one on the CUDA-core one")
     model.to("cpu")
     t_cpu = time.perf_counter()
     on_cpu = step2(model, {"tokens": tokens}).float()
@@ -935,6 +1026,7 @@ def main() -> int:
     emit("prefill_check", arch=LM_ARCH, n_layers=check_cfg.n_layers,
          tokens=list(tokens.shape), attn_impl=check_cfg.attn_impl,
          flash_launches=card_launches,
+         flash_launches_by_variant=check_by_variant,
          f32_logits_max_abs_err=f32_err,
          f32_tolerance={"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
          logits_max_abs_err=logit_err,
@@ -1005,6 +1097,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:70",
+        "variant": lm_variant,
+        "sass_counts": flash_sass,
         "launches": lm_launches,
         "launches_per_request": lm_cfg.n_layers,
         "max_abs_err": slice_err,

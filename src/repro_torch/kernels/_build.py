@@ -6,10 +6,17 @@ the checkout.  Nothing is built when a module is imported: the first
 call to :func:`library` builds every source once per process, one
 ``nvcc`` per source, all started together.  A failed build raises.
 
-The flags are fixed: ``sm_90a`` (Hopper), ``-O3``, and no
-``--use_fast_math``, which may rewrite the ``value <= cmp`` comparisons
-that route NaN rows and would swap the softmax's ``expf`` for a faster,
-less accurate one.
+The flags are fixed: ``sm_90a`` (Hopper: ``wgmma`` and ``setmaxnreg``
+exist only there), ``-O3``, and no ``--use_fast_math``, which may
+rewrite the ``value <= cmp`` comparisons that route NaN rows and would
+swap the CUDA-core softmax's ``expf`` for a faster, less accurate one
+(the Hopper flash kernel picks its ``ex2.approx`` itself, where its
+error is bounded).  No include path or link flag is added: the flash
+kernel's TMA tensor maps come from ``cuTensorMapEncodeTiled``, whose
+types ``<cuda.h>`` in the toolkit's default include path declares and
+which it reaches through ``cudaGetDriverEntryPoint``, so the libraries
+need no ``-lcuda``; its ``wgmma``, TMA and ``mbarrier`` code is inline
+PTX, without CUTLASS.
 """
 
 from __future__ import annotations

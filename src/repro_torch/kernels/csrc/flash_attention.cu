@@ -1,5 +1,5 @@
 // Blockwise (flash) attention with GQA and causal / sliding-window masks,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a): two kernels behind two C entries.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (kernel _flash_kernel).  For query row i of head h and key j of KV head
@@ -11,38 +11,97 @@
 // and o_i = sum_j softmax_j(s_i) v_j, by the online softmax over tiles of
 // keys with float32 m (running max, NEG_INF = -1e30 at the start), l (sum
 // of exponentials) and acc (sum of p v).  A row that keeps no key has
-// l == 0 and gets 0.  q, k and v are read as float32, or as bf16 widened
-// to float32; o is written in q's dtype (bf16 rounded to nearest even).
+// l == 0 and gets 0.  Both kernels skip KV tiles that lie wholly outside
+// the causal / window band.  That is exact: such a tile has s = NEG_INF
+// everywhere, so m_new = m_prev, alpha = exp(0) = 1 and p = 0, and m, l
+// and acc are unchanged in the JAX kernel too.  Both take query tiles
+// heaviest first (the longest causal bands), so the long tiles start
+// early and the short ones fill the end.
 //
 // What bounds it on the H100: operations.  At the prefill shape of
 // glm4-9b (q 2 x 32 x 4096 x 128, k/v 2 x 2 x 4096 x 128, causal) the
-// unmasked (query, key) pairs need 4d = 512 float operations each, 275
-// GFLOP, against 0.14 GB of q, k, v and o: 0.28 ms at the tensor cores'
-// bf16 rate, 4.1 ms at the 67 TFLOP/s of float32 on the CUDA cores.
+// unmasked (query, key) pairs need 4d = 512 operations each, 275 GFLOP,
+// against 0.14 GB of q, k, v and o: 0.28 ms at the tensor cores' 989
+// TFLOP/s in bf16, 4.1 ms at the 67 TFLOP/s of float32 on the CUDA cores.
 //
-// Design.  This first kernel keeps the JAX kernel's float32 arithmetic on
-// the CUDA cores: bf16 mma/wgmma would round p before the product with v.
-// One block of 256 threads owns one (batch * q-head, 64-row query tile);
-// the TPU grid's sequential KV axis becomes a loop inside the block over
-// 64-key tiles, staged through shared memory.  GQA reads KV head h / g
-// directly (no repeated K/V).  Per KV tile: S = Q K^T as a 4 x 4 register
-// tile per thread (float4 reads along d, rows padded by 4 floats so a
-// quarter-warp's reads hit distinct banks), the online-softmax update
-// with the row max and row sum reduced across the 16 threads that share a
-// row by warp shuffles (a butterfly, so every thread holds the same
-// value), P written to shared memory, then acc += P V into a 4 x (4 * NC)
-// register tile.  K and then V reuse one shared buffer, so two blocks fit
-// on an SM.  KV tiles that lie wholly outside the causal / window band are
-// skipped.  That is exact: such a tile has s = NEG_INF everywhere, so
-// m_new = m_prev, alpha = exp(0) = 1 and p = 0, and m, l and acc are
-// unchanged in the JAX kernel too.  Query tiles are walked heaviest first
-// (blockIdx.y counts down the causal triangle), so the long tiles start in
-// the first wave.  Tensor cores, TMA and pipelined loads are later work.
+// flash_attention_wgmma -- bf16 at head dims 32, 64 and 128 (the prefill
+// path).  Design, for the tensor cores:
+// - Persistent: one block of 384 threads an SM walks its share of the
+//   work items, each a (batch * q-head, 128-row query tile), heaviest
+//   first.  Two consumer warpgroups take 64 query rows each; one thread
+//   of a producer warpgroup issues every copy.  setmaxnreg moves
+//   registers from the producer (24 a thread) to the consumers (240).
+//   The K/V ring runs on from one item to the next, and the next item's
+//   Q loads (once an mbarrier says every S of this item has landed) while
+//   this item's last P V and its output are under way.
+// - Q, and K and V in tiles of 128 keys, reach shared memory by TMA
+//   (cp.async.bulk.tensor, tensor maps built on the host) in the swizzled
+//   layout that wgmma's descriptors read: rows of 128 bytes (64 bytes at
+//   d = 32), a head dim wider than that in column chunks of 64.
+// - K/V go through a ring of three stages (225 KB of shared memory at
+//   d = 128 with Q), each with a full mbarrier (the copy's bytes arrived)
+//   and an empty one (all 256 consumer threads are done with it), so the
+//   next tiles load while this one is computed.
+// - S = Q K^T by wgmma m64n128k16, bf16 x bf16 -> f32, Q and K from
+//   shared memory (both K-major).  O += P V by wgmma m64nDk16 with P as
+//   the A operand from registers: the f32 accumulator of S holds, per
+//   thread, exactly the elements of the A fragment of the next product,
+//   so P is packed to bf16 in place and never goes through shared
+//   memory.  V is the B operand as stored, [keys][d], read MN-major (the
+//   transpose bit).
+// - Overlap, two ways.  Within a warpgroup: S_t = Q K_t^T and
+//   P_{t-1} V_{t-1} are issued together, the softmax of S_t runs while
+//   P V is in flight, and O is rescaled once P V has landed (S, P and O
+//   in flight at once: 160 of the 240 registers).  Between the two
+//   warpgroups: they take turns to issue (named barriers), so that one's
+//   softmax runs while the other's products hold the tensor cores; left
+//   alone, the two wait on the same tile and reach their softmax
+//   together, leaving the tensor cores idle.  The wgmma descriptors are
+//   built inside each wgmma's asm from a tile's descriptor and an
+//   immediate offset, so the compiler keeps no descriptor a k16 step
+//   live: with them hoisted, ptxas ran out of registers and serialised
+//   the wgmmas.
+// - Only tiles that straddle the diagonal or the window's lower edge for
+//   a warpgroup's 64 rows compute the mask; interior tiles run unmasked.
+// - GQA reads KV head h / g through its row coordinate in the K/V tensor
+//   maps; no K/V is repeated.  A block takes one query head: two heads of
+//   one group do not share a K/V tile (each K/V tile is read from L2 by
+//   the g blocks of its group).
+// - Numerics: scores, m, l and acc are float32.  log2(e) is folded into
+//   the scale and the exponentials are the SFU's ex2 (ex2.approx.ftz; no
+//   fast-math flag): p = 2^(s * scale * log2(e) - m), m kept in that
+//   base-2 domain, masked scores at -inf so that p = 0 exactly, a p below
+//   2^-126 flushed to 0.  l sums the float32 p; only the A operand of P V
+//   is p rounded to bf16 (to nearest even).  That adds at most
+//   2^-9 sum_j p_j |v_j| / l to an output element, the term that
+//   ref.attention_rounding_bound doubles.  o = acc * (1 / l), within an
+//   ulp of acc / l, is rounded to bf16 at the end.  A row with one kept
+//   key gets p = 1 and o = v exactly.
+// - A wait on an mbarrier that lasts 4 s traps, so a broken pipeline
+//   fails the launch instead of holding the card.
+//
+// flash_attention -- the CUDA-core kernel: every float32 call, and bf16 at
+// head dim 80 (160-byte rows take no TMA swizzle).  It keeps the JAX
+// kernel's float32 arithmetic, p included, so float32 meets the 2e-4
+// contract with the JAX package; a TF32 wgmma keeps 10 bits of mantissa
+// and would not.  One block of 256 threads owns one (batch * q-head,
+// 64-row query tile); the TPU grid's sequential KV axis becomes a loop
+// inside the block over 64-key tiles, staged through shared memory and
+// widened to float32.  Per KV tile: S = Q K^T as a 4 x 4 register tile per
+// thread (float4 reads along d, rows padded by 4 floats so a quarter-
+// warp's reads hit distinct banks), the online-softmax update with the
+// row max and row sum reduced across the 16 threads that share a row by
+// warp shuffles (a butterfly, so every thread holds the same value), P
+// written to shared memory, then acc += P V into a 4 x (4 * NC) register
+// tile.  K and then V reuse one shared buffer, so two blocks fit on an SM.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -307,14 +366,704 @@ cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The Hopper kernel: wgmma on the tensor cores, a TMA ring, warp-specialised.
+// ---------------------------------------------------------------------------
+namespace hopper {
+
+constexpr int kBlockM = 128;             // query rows: 2 warpgroups x 64
+constexpr int kBlockN = 128;             // keys a K/V tile; divides 128
+constexpr int kStages = 3;               // the K/V ring
+constexpr int kConsumers = 256;          // 2 consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+
+template <int D>
+struct Layout {
+  // Bytes of a swizzled shared-memory row; a TMA box is one column chunk
+  // of that many bytes across all rows of the tile, chunks one after the
+  // other.  The swizzle repeats every 8 rows (8 * kSwizzle bytes).
+  static constexpr int kSwizzle = D >= 64 ? 128 : 64;
+  static constexpr int kChunkCols = kSwizzle / 2;
+  static constexpr int kChunks = D / kChunkCols;
+  static constexpr int kStepsPerChunk = kSwizzle / 32;  // k16 steps a chunk
+  static constexpr int kQBytes = kBlockM * D * 2;
+  static constexpr int kTileBytes = kBlockN * D * 2;    // K or V of a stage
+  static constexpr int kBarrierBytes = 8 * (2 * kStages + 2);
+  // 1024 bytes of slack to align the tiles to the swizzle's period.
+  static constexpr int kSmemBytes =
+      1024 + kQBytes + 2 * kStages * kTileBytes + kBarrierBytes;
+};
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool bar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Returns once the phase of ``bar`` with this parity has completed.  A
+// wait of more than 4 s can only be a broken pipeline: it traps, so the
+// launch fails (the wrapper's next synchronise reports it) instead of
+// holding the card.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  if (bar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!bar_try_wait(bar, parity))
+    if (global_ns() - t0 > 4000000000ull) __trap();
+}
+
+// One box of ``map`` at (column c0, row c1) into shared memory at ``dst``;
+// the bytes count against ``bar``'s transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(bar)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode (1 = 128 B, 2 = 64 B).
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  constexpr uint64_t mode = kSwizzle == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
+         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
+         | (mode << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
+#define ACC32(i) ACC16(i), ACC16(i + 16)
+#define REGS16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define REGS32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define REGS64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// The wgmma wrappers take a descriptor of the tile and the k16 step's
+// offset into it (16-byte units) as an immediate, and add the two inside
+// the asm: only the tiles' descriptors stay live, not one per step.
+
+// d (64 x 128, f32) = A B (+ d if accumulate): A and B from shared memory,
+// both K-major.
+template <int kOffA, int kOffB>
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 da, db;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "add.s64 da, %64, %67;\n"
+      "add.s64 db, %65, %68;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      ", da, db, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : ACC32(0), ACC32(32)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kOffA), "n"(kOffB));
+}
+
+// d (64 x N, f32) += A B: A (64 x 16, bf16) from registers, B from shared
+// memory, MN-major (the transpose bit).
+template <int N, int kOffB>
+struct MmaRs;
+
+template <int kOffB>
+struct MmaRs<32, kOffB> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        ".reg .b64 db;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "add.s64 db, %20, %22;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REGS16
+        ", {%16, %17, %18, %19}, db, p, 1, 1, 1;\n"
+        "}\n"
+        : ACC16(0)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1), "n"(kOffB));
+  }
+};
+
+template <int kOffB>
+struct MmaRs<64, kOffB> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        ".reg .b64 db;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "add.s64 db, %36, %38;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+        ", {%32, %33, %34, %35}, db, p, 1, 1, 1;\n"
+        "}\n"
+        : ACC32(0)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1), "n"(kOffB));
+  }
+};
+
+template <int kOffB>
+struct MmaRs<128, kOffB> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        ".reg .b64 db;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "add.s64 db, %68, %70;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+        ", {%64, %65, %66, %67}, db, p, 1, 1, 1;\n"
+        "}\n"
+        : ACC32(0), ACC32(32)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1), "n"(kOffB));
+  }
+};
+
+#undef ACC4
+#undef ACC16
+#undef ACC32
+#undef REGS16
+#undef REGS32
+#undef REGS64
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x by the SFU's ex2 alone: a result below 2^-126 flushes to 0, where
+// exp2f would scale its way to a subnormal.  p is at most 1 and such a
+// term is far below the 2^-9 of p's own rounding to bf16.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S (64 x 128 keys, f32) = Q K^T over d in k16 steps, from the
+// descriptors of the warpgroup's Q rows and of a K tile.  Q and K are
+// [chunk][rows][chunk columns], swizzled; a k16 step is 32 bytes into a
+// chunk's rows.
+template <int D>
+__host__ __device__ constexpr int qk_step_offset(int kk, int rows) {
+  using L = Layout<D>;
+  return ((kk / L::kStepsPerChunk) * rows * L::kSwizzle
+          + (kk % L::kStepsPerChunk) * 32) / 16;
+}
+
+template <int D, int... kK>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t q,
+                                         uint64_t k,
+                                         std::integer_sequence<int, kK...>) {
+  (mma_ss_n128<qk_step_offset<D>(kK, kBlockM),
+               qk_step_offset<D>(kK, kBlockN)>(s, q, k, kK > 0),
+   ...);
+}
+
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t q,
+                                         uint64_t k) {
+  issue_qk<D>(s, q, k, std::make_integer_sequence<int, D / 16>{});
+}
+
+// acc (64 x D, f32) += P V over the tile's keys in k16 steps, from the
+// descriptor of a V tile: step kk reads keys 16kk .. 16kk + 15, V rows
+// 16kk on; column chunks of V lie kBlockN rows apart (the descriptor's
+// leading byte offset).
+template <int D, int... kK>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&p)[32], uint64_t v,
+                                         std::integer_sequence<int, kK...>) {
+  (MmaRs<D, (kK * Layout<D>::kSwizzle)>::run(   // 16 rows, 16-byte units
+       acc, p[4 * kK], p[4 * kK + 1], p[4 * kK + 2], p[4 * kK + 3], v),
+   ...);
+}
+
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&p)[32],
+                                         uint64_t v) {
+  issue_pv<D>(acc, p, v, std::make_integer_sequence<int, kBlockN / 16>{});
+}
+
+// Rounds the float32 p of a tile to bf16, into the A fragments of P V:
+// k16 step kk reads accumulator elements 8kk .. 8kk + 7, as they lie.
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&p)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// Where a thread's accumulator elements lie in the tile.
+struct Rows {
+  int q_lo;   // the warpgroup's first query row
+  int r0;     // the thread's rows: r0 and r0 + 8
+  int c0;     // the thread's first column in each group of 8
+};
+
+// The online softmax of two rows (r0 and r0 + 8) of a thread: running
+// max m in the base-2 domain (scores times scale * log2(e)), this
+// thread's share of l, and the factor alpha by which the accumulator
+// still has to be rescaled for the latest tile.
+struct Softmax {
+  float m0 = kNegInf, m1 = kNegInf;
+  float l0 = 0.f, l1 = 0.f;
+  float alpha0 = 1.f, alpha1 = 1.f;
+
+  // Scores of the tile at key k0 -> float32 p, in place.
+  __device__ __forceinline__ void update(float (&s)[64], const Rows& rows,
+                                         int k0, float scale_log2,
+                                         int causal, int window) {
+    // The mask, only on tiles that straddle the diagonal or the
+    // window's lower edge for some row of this warpgroup: row r keeps
+    // the keys in [r - window + 1, r] (causal, window), as offsets from
+    // the thread's first column in the tile.
+    if ((causal && k0 + kBlockN - 1 > rows.q_lo)
+        || (window > 0 && k0 <= rows.q_lo + 63 - window)) {
+      const int base = k0 + rows.c0;
+      const int hi0 = causal ? rows.r0 - base : kBlockN;
+      const int lo0 = window > 0 ? rows.r0 - window + 1 - base : -kBlockN;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int col = 8 * (i >> 2) + (i & 1);
+        const int row8 = 8 * ((i >> 1) & 1);
+        if (col > hi0 + row8 || col < lo0 + row8) s[i] = -INFINITY;
+      }
+    }
+    // Row max and row sum over four independent partials a row, so that
+    // the chains of dependent operations are 4 long and not 16.
+    float mx0[4], mx1[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mx0[j] = fmaxf(s[4 * j], s[4 * j + 1]);
+      mx1[j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+    }
+#pragma unroll
+    for (int j = 4; j < 16; ++j) {
+      mx0[j & 3] = fmaxf(mx0[j & 3], fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1[j & 3] = fmaxf(mx1[j & 3], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    float row_max0 = fmaxf(fmaxf(mx0[0], mx0[1]), fmaxf(mx0[2], mx0[3]));
+    float row_max1 = fmaxf(fmaxf(mx1[0], mx1[1]), fmaxf(mx1[2], mx1[3]));
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      row_max0 = fmaxf(row_max0, __shfl_xor_sync(0xffffffffu, row_max0, off));
+      row_max1 = fmaxf(row_max1, __shfl_xor_sync(0xffffffffu, row_max1, off));
+    }
+    // scale > 0, so the scaled max is the max of the scaled scores
+    const float mn0 = fmaxf(m0, row_max0 * scale_log2);
+    const float mn1 = fmaxf(m1, row_max1 * scale_log2);
+    alpha0 = exp2_ftz(m0 - mn0);
+    alpha1 = exp2_ftz(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0[4] = {0.f, 0.f, 0.f, 0.f}, sum1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      s[4 * j] = exp2_ftz(fmaf(s[4 * j], scale_log2, -mn0));
+      s[4 * j + 1] = exp2_ftz(fmaf(s[4 * j + 1], scale_log2, -mn0));
+      s[4 * j + 2] = exp2_ftz(fmaf(s[4 * j + 2], scale_log2, -mn1));
+      s[4 * j + 3] = exp2_ftz(fmaf(s[4 * j + 3], scale_log2, -mn1));
+      sum0[j & 3] += s[4 * j] + s[4 * j + 1];
+      sum1[j & 3] += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * alpha0 + ((sum0[0] + sum0[1]) + (sum0[2] + sum0[3]));
+    l1 = l1 * alpha1 + ((sum1[0] + sum1[1]) + (sum1[2] + sum1[3]));
+  }
+
+  template <int N>
+  __device__ __forceinline__ void rescale(float (&acc)[N]) const {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      acc[4 * j] *= alpha0;
+      acc[4 * j + 1] *= alpha0;
+      acc[4 * j + 2] *= alpha1;
+      acc[4 * j + 3] *= alpha1;
+    }
+  }
+};
+
+// One work item: a (batch * q-head, 128-row query tile) and its band of
+// K/V tiles.  Items are numbered heaviest first: every head's last query
+// tile (the longest causal band), then every head's tile before it, ...
+struct Work {
+  int bh;        // batch * q_heads + head
+  int q0;        // first query row
+  int kv_row;    // row of the band's first K/V tile in the K/V maps
+  int k_begin;   // its first key
+  int n_tiles;   // K/V tiles in the band
+};
+
+__device__ __forceinline__ Work work_item(int item, int heads, int q_heads,
+                                          int kv_heads, int sq, int sk,
+                                          int causal, int window) {
+  Work w;
+  w.bh = item % heads;
+  w.q0 = (sq / kBlockM - 1 - item / heads) * kBlockM;
+  const int b = w.bh / q_heads;
+  const int kvh = b * kv_heads + (w.bh - b * q_heads) / (q_heads / kv_heads);
+  // The band of K/V tiles that hold a kept key for some row of the tile.
+  int k_end = sk;
+  w.k_begin = 0;
+  if (causal) k_end = min(sk, w.q0 + kBlockM);
+  if (window > 0) w.k_begin = max(0, w.q0 - window + 1) / kBlockN * kBlockN;
+  w.n_tiles = (k_end - w.k_begin + kBlockN - 1) / kBlockN;
+  w.kv_row = kvh * sk + w.k_begin;
+  return w;
+}
+
+// Persistent: block i takes items i, i + gridDim.x, ...  The K/V ring runs
+// on across items, and the next item's Q loads while this item's last
+// products and its output are still under way.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, int heads, int q_heads,
+                   int kv_heads, int sq, int sk, float scale_log2, int causal,
+                   int window) {
+  using L = Layout<D>;
+  constexpr int kSw = L::kSwizzle;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u)
+      & ~1023u;
+  const uint32_t s_q = base;                          // [chunk][128 rows]
+  const uint32_t s_k = s_q + L::kQBytes;              // [stage][chunk][rows]
+  const uint32_t s_v = s_k + kStages * L::kTileBytes;
+  const uint32_t bars = s_v + kStages * L::kTileBytes;
+  // full[stage] at bars + 8 stage, empty[stage] after them, then Q's
+  // full and empty
+  const uint32_t q_full = bars + 16 * kStages;
+  const uint32_t q_empty = q_full + 8;
+  const int n_items = heads * (sq / kBlockM);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      bar_init(bars + 8 * st, 1);                          // full
+      bar_init(bars + 8 * (kStages + st), kConsumers);     // empty
+    }
+    bar_init(q_full, 1);
+    bar_init(q_empty, kConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      int g = 0;                                   // K/V tiles so far
+      int j = 0;                                   // items so far
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
+        const Work w = work_item(item, heads, q_heads, kv_heads, sq, sk,
+                                 causal, window);
+        // Q is free once every S of the block's previous item has landed.
+        bar_wait(q_empty, (j & 1) ^ 1);
+        bar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+        for (int c = 0; c < L::kChunks; ++c)
+          tma_load(s_q + c * kBlockM * kSw, &tq, q_full, c * L::kChunkCols,
+                   w.bh * sq + w.q0);
+        for (int t = 0; t < w.n_tiles; ++t, ++g) {
+          const int st = g % kStages;
+          const uint32_t full = bars + 8 * st;
+          // the first pass over the ring finds every stage empty
+          bar_wait(bars + 8 * (kStages + st), ((g / kStages) & 1) ^ 1);
+          bar_expect_tx(full, 2 * L::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < L::kChunks; ++c) {
+            const uint32_t off = st * L::kTileBytes + c * kBlockN * kSw;
+            tma_load(s_k + off, &tk, full, c * L::kChunkCols,
+                     w.kv_row + t * kBlockN);
+            tma_load(s_v + off, &tv, full, c * L::kChunkCols,
+                     w.kv_row + t * kBlockN);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    // The two warpgroups take turns to issue their products (named
+    // barriers 1 and 2), so that one's softmax runs while the other's
+    // products hold the tensor cores.  Warpgroup 0 goes first.
+    const int my_turn = 1 + wg;
+    const int other_turn = 2 - wg;
+    if (wg == 1) named_arrive(1);
+
+    // Descriptors: K-major Q and K (the leading offset unused), MN-major V
+    // (column chunks kBlockN rows apart); 8-row groups 8 rows apart.
+    const uint64_t dq = descriptor<kSw>(s_q + wg * 64 * kSw, 16, 8 * kSw);
+    const uint64_t dk = descriptor<kSw>(s_k, 16, 8 * kSw);
+    const uint64_t dv = descriptor<kSw>(s_v, kBlockN * kSw, 8 * kSw);
+    constexpr int kTileDesc = L::kTileBytes >> 4;   // a stage, in the
+                                                    // descriptor's units
+    int g = 0;                                      // K/V tiles so far
+    int j = 0;                                      // items so far
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
+      const Work w = work_item(item, heads, q_heads, kv_heads, sq, sk,
+                               causal, window);
+      Rows rows;
+      rows.q_lo = w.q0 + 64 * wg;                      // this warpgroup's
+      rows.r0 = rows.q_lo + 16 * warp + (lane >> 2);   // rows r0, r0 + 8
+      rows.c0 = 2 * (lane & 3);                        // columns c0, c0 + 1
+
+      // Accumulator layout of a 64 x N wgmma, per thread: element 4j + e
+      // is (row r0 + 8 (e >> 1), column 8j + c0 + (e & 1)).
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float s[64];          // scores of a tile, then its float32 p
+      uint32_t p[32];       // p in bf16: the A fragments of P V
+      Softmax sm;
+
+      bar_wait(q_full, j & 1);
+
+      // Tile 0: S alone.
+      int st = g % kStages;
+      bar_wait(bars + 8 * st, (g / kStages) & 1);
+      named_sync(my_turn);
+      wgmma_fence();
+      issue_qk<D>(s, dq, dk + st * kTileDesc);
+      wgmma_commit();
+      named_arrive(other_turn);
+      wgmma_wait<0>();
+      fence_regs(s);
+      sm.update(s, rows, w.k_begin, scale_log2, causal, window);
+      pack_p(s, p);
+
+      // Tile t: S_t = Q K_t^T and P_{t-1} V_{t-1} in one turn; the
+      // softmax of S_t runs under this warpgroup's P V and the other
+      // warpgroup's turn, and O is rescaled once P V has landed.
+      for (int t = 1; t < w.n_tiles; ++t) {
+        const int prev = st;
+        st = (g + t) % kStages;
+        bar_wait(bars + 8 * st, ((g + t) / kStages) & 1);
+        named_sync(my_turn);
+        wgmma_fence();
+        issue_qk<D>(s, dq, dk + st * kTileDesc);
+        wgmma_commit();
+        issue_pv<D>(acc, p, dv + prev * kTileDesc);
+        wgmma_commit();
+        named_arrive(other_turn);
+        wgmma_wait<1>();                   // S_t has landed
+        fence_regs(s);
+        sm.update(s, rows, w.k_begin + t * kBlockN, scale_log2, causal,
+                  window);
+        wgmma_wait<0>();                   // P_{t-1} V_{t-1} has landed
+        fence_regs(acc);
+        bar_arrive(bars + 8 * (kStages + prev));   // tile t-1 may refill
+        sm.rescale(acc);
+        pack_p(s, p);
+      }
+      bar_arrive(q_empty);               // every S of this item has landed
+      g += w.n_tiles;
+
+      // The last tile's P V.  After the block's last item, warpgroup 1
+      // arrives for no further turn.
+      named_sync(my_turn);
+      wgmma_fence();
+      issue_pv<D>(acc, p, dv + st * kTileDesc);
+      wgmma_commit();
+      if (wg == 0 || item + gridDim.x < n_items) named_arrive(other_turn);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      bar_arrive(bars + 8 * (kStages + st));
+
+      // l over the 4 threads of a row, then o = acc * (1 / l) (0 where
+      // l == 0): within an ulp of acc / l in float32, far below the bf16
+      // rounding of o.
+      float l0 = sm.l0, l1 = sm.l1;
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
+      const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+      __nv_bfloat16* o0 =
+          o + (static_cast<size_t>(w.bh) * sq + rows.r0) * D + rows.c0;
+      __nv_bfloat16* o1 = o0 + 8 * D;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        *reinterpret_cast<uint32_t*>(o0 + 8 * c) =
+            pack_bf16(acc[4 * c] * inv0, acc[4 * c + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(o1 + 8 * c) =
+            pack_bf16(acc[4 * c + 2] * inv1, acc[4 * c + 3] * inv1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D map of a (rows, d) bf16 matrix whose box is one swizzled column
+// chunk of ``box_rows`` rows.
+template <int D>
+CUresult make_map(CUtensorMap* map, const void* ptr, uint64_t rows,
+                  int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), rows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(Layout<D>::kChunkCols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Layout<D>::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Returns a cudaError_t, or -CUresult if a tensor map could not be built.
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int q_heads, int kv_heads, int sq, int sk, float scale,
+           int causal, int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const uint64_t kv_rows = static_cast<uint64_t>(batch) * kv_heads * sk;
+  CUresult r = make_map<D>(&tq, q, static_cast<uint64_t>(batch) * q_heads * sq,
+                           kBlockM);
+  if (r == CUDA_SUCCESS) r = make_map<D>(&tk, k, kv_rows, kBlockN);
+  if (r == CUDA_SUCCESS) r = make_map<D>(&tv, v, kv_rows, kBlockN);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  constexpr int smem = Layout<D>::kSmemBytes;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // One block an SM (a block takes 225 KB of shared memory at d = 128),
+  // each walking its share of the work items.
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int heads = batch * q_heads;
+  const int blocks = min(heads * (sq / kBlockM), sms);
+  flash_kernel_wgmma<D><<<blocks, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), heads, q_heads, kv_heads,
+      sq, sk, scale * 1.4426950408889634f, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper
+
 }  // namespace
 
 // q (batch, q_heads, sq, d), k and v (batch, kv_heads, sk, d), o like q:
-// contiguous, all float32 (bf16 = 0) or all bf16 (bf16 = 1), 8-byte
-// aligned.  d in {32, 64, 80, 128}; sq and sk multiples of 64 (the wrapper
-// asks for 128, as the JAX kernel does); q_heads % kv_heads == 0.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue,
-// without a launch, for a head dim it was not built for).
+// contiguous and 16-byte aligned.  q_heads % kv_heads == 0; sq and sk
+// multiples of 128 (the JAX kernel's block); a causal or window mask only
+// with sq == sk.  Each returns cudaGetLastError() after its launch, and
+// cudaErrorInvalidValue, without a launch, for a head dim or dtype it was
+// not built for; the wrapper (kernels/flash_attention.py) picks the entry.
+
+// The CUDA-core kernel: float32 (bf16 = 0) at d in {32, 64, 80, 128}, or
+// bf16 (bf16 = 1) at d = 80.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int bf16, int batch, int q_heads,
                                int kv_heads, int sq, int sk, int d,
@@ -322,10 +1071,34 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return static_cast<int>(dispatch<__nv_bfloat16>(
-        d, q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale, causal,
-        window, s));
+    return d == 80 ? static_cast<int>(launch<80, __nv_bfloat16>(
+                         q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
+                         causal, window, s))
+                   : static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch<float>(d, q, k, v, o, batch, q_heads,
                                           kv_heads, sq, sk, scale, causal,
                                           window, s));
+}
+
+// The Hopper kernel: bf16 at d in {32, 64, 128}.  A negative result is
+// -CUresult of cuTensorMapEncodeTiled (no launch).
+extern "C" int flash_attention_wgmma(const void* q, const void* k,
+                                     const void* v, void* o, int batch,
+                                     int q_heads, int kv_heads, int sq,
+                                     int sk, int d, float scale, int causal,
+                                     int window, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return hopper::launch<32>(q, k, v, o, batch, q_heads, kv_heads, sq, sk,
+                                scale, causal, window, s);
+    case 64:
+      return hopper::launch<64>(q, k, v, o, batch, q_heads, kv_heads, sq, sk,
+                                scale, causal, window, s);
+    case 128:
+      return hopper::launch<128>(q, k, v, o, batch, q_heads, kv_heads, sq,
+                                 sk, scale, causal, window, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

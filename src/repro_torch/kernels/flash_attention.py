@@ -1,14 +1,22 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.
-The kernel takes CUDA tensors only: this wrapper checks device, dtype,
-shape, contiguity and alignment, raises on anything the kernel does not
-take, and never falls back to the plain version (``ref.attention_ref``).
-The CPU path is chosen by ``ops.flash_attention`` from the tensor's
-device.  The JAX kernel has no VJP, so neither has this one: an input
-that requires a gradient is refused.
+The kernels take CUDA tensors only: this wrapper checks device, dtype,
+shape, contiguity and alignment, raises on anything they do not take,
+and never falls back to the plain version (``ref.attention_ref``).  The
+CPU path is chosen by ``ops.flash_attention`` from the tensor's device.
+The JAX kernel has no VJP, so neither has this one: an input that
+requires a gradient is refused.
 
-``launches`` counts the kernel launches of this process.
+Two kernels, chosen by :func:`variant` from dtype and head dim alone:
+bf16 at :data:`WGMMA_HEAD_DIMS` runs on the Hopper kernel (``wgmma`` on
+the tensor cores, TMA, P rounded to bf16 before its product with V);
+every float32 call, and bf16 at head dim 80, on the CUDA-core kernel,
+which keeps P in float32.  A failure of the chosen kernel raises; no
+call is retried on the other.
+
+``launches`` counts the kernel launches of this process,
+``launches_by_variant`` the same launches by kernel.
 """
 
 from __future__ import annotations
@@ -20,24 +28,49 @@ import torch
 from . import _build
 from .ref import check_attention_lengths
 
-HEAD_DIMS = (32, 64, 80, 128)   # the kernel's instantiations
-SEQ_MULTIPLE = 128              # as the JAX kernel asserts
+HEAD_DIMS = (32, 64, 80, 128)   # the head dims some kernel takes
+SEQ_MULTIPLE = 128              # as the JAX kernel asserts; the Hopper
+                                # kernel's block of query rows
 DTYPES = (torch.float32, torch.bfloat16)
 
+# The dispatch.  bf16 at these head dims goes to the Hopper kernel: rows
+# of 64 or more bytes take TMA's 64- or 128-byte swizzle, which d = 80
+# (160-byte rows) does not.  bf16 at d = 80 and every float32 call go to
+# the CUDA-core kernel: a TF32 wgmma keeps 10 bits of mantissa and would
+# break the float32 contract (2e-4) with the JAX package.
+WGMMA_HEAD_DIMS = (32, 64, 128)
+VARIANTS = ("wgmma_bf16", "cuda_core_bf16", "cuda_core_f32")
+
 launches = 0
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 _fns: dict = {}
 
 
-def _kernel():
+def variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes a call of this dtype and head dim."""
+    if dtype == torch.bfloat16:
+        return "wgmma_bf16" if d in WGMMA_HEAD_DIMS else "cuda_core_bf16"
+    return "cuda_core_f32"
+
+
+def _kernel(name: str):
+    """The C entry of a variant: ``flash_attention_wgmma`` or
+    ``flash_attention`` (the CUDA-core kernel, which takes a bf16 flag)."""
     if not _fns:
-        fn = _build.library("flash_attention").flash_attention
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns["flash_attention"] = fn
-    return _fns["flash_attention"]
+        lib = _build.library("flash_attention")
+        wgmma = lib.flash_attention_wgmma
+        wgmma.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p])
+        core = lib.flash_attention
+        core.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p])
+        for fn in (wgmma, core):
+            fn.restype = ctypes.c_int
+        _fns.update(wgmma=wgmma, core=core)
+    return _fns["wgmma" if name == "wgmma_bf16" else "core"]
 
 
 def _check(q, k, v, window):
@@ -85,14 +118,16 @@ def _check(q, k, v, window):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
-    """Blockwise attention in one launch.
+    """Blockwise attention in one launch of the kernel :func:`variant`
+    picks.
 
     Same arguments and result as :func:`repro_torch.kernels.ref.
-    attention_ref`, within float32 rounding: q (batch, q_heads, sq, d),
-    k and v (batch, kv_heads, sk, d), contiguous on one CUDA device, all
-    float32 or all bfloat16; ``d`` in :data:`HEAD_DIMS`; ``sq`` and
-    ``sk`` multiples of 128.  Returns (batch, q_heads, sq, d) in q's
-    dtype.
+    attention_ref`: float32 within float32 rounding; bf16 within the
+    rounding of P to bf16 (``ref.attention_rounding_bound``) and of the
+    output.  q (batch, q_heads, sq, d), k and v (batch, kv_heads, sk, d),
+    contiguous on one CUDA device, all float32 or all bfloat16; ``d`` in
+    :data:`HEAD_DIMS`; ``sq`` and ``sk`` multiples of 128.  Returns
+    (batch, q_heads, sq, d) in q's dtype.
     """
     global launches
     _check(q, k, v, window)
@@ -102,14 +137,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    name = variant(q.dtype, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    dims = (b, hq, hkv, sq, sk, d, 1.0 / d ** 0.5, int(causal), int(window),
+            stream)
     with torch.cuda.device(q.device):
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), int(q.dtype == torch.bfloat16), b, hq,
-                        hkv, sq, sk, d, 1.0 / d ** 0.5, int(causal),
-                        int(window), stream)
+        if name == "wgmma_bf16":
+            err = _kernel(name)(*ptrs, *dims)
+        else:
+            err = _kernel(name)(*ptrs, int(q.dtype == torch.bfloat16), *dims)
+    if err < 0:
+        raise RuntimeError(f"flash_attention ({name}): cuTensorMapEncodeTiled "
+                           f"failed, CUresult {-err}")
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention ({name}) kernel launch failed: "
                            f"cudaError_t {err}")
     launches += 1
+    launches_by_variant[name] += 1
     return out

@@ -202,10 +202,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Blockwise attention with GQA and an optional sliding window.
 
     q (batch, q_heads, s, d), k and v (batch, kv_heads, s, d).  A CUDA
-    tensor goes to the hand-written kernel (one launch), a CPU tensor to
-    ``ref.attention_ref``; the two agree within float32 rounding.  A
-    causal or window mask over queries and keys of different lengths
-    raises on both (see ``ref.check_attention_lengths``).
+    tensor goes to a hand-written kernel (one launch), a CPU tensor to
+    ``ref.attention_ref``.  In float32 the two agree within float32
+    rounding.  In bf16 the card's kernel rounds P to bf16 before its
+    product with V, so the two agree within ``ref.
+    attention_rounding_bound`` (twice ``2^-9`` times the attention of
+    ``|v|``) plus one bf16 rounding of the output.  A causal or window mask
+    over queries and keys of different lengths raises on both (see
+    ``ref.check_attention_lengths``).
     """
     if resolve(backend, q.device) == "cuda":
         return flash_kernel.flash_attention_cuda(q, k, v, causal=causal,

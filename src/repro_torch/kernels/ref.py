@@ -276,6 +276,25 @@ def hist_rounding_bound(bins: torch.Tensor, node_per_level: torch.Tensor,
     return 2 * gamma / (1 - gamma) * abs_sum
 
 
+def attention_rounding_bound(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int = 0) -> torch.Tensor:
+    """How far attention whose P is rounded to bf16 before its product with
+    V may lie from the float32 :func:`attention_ref`, element by element.
+
+    The Hopper kernel rounds each float32 ``p_j`` to bf16 (relative error
+    at most 2^-9, to nearest even) as the A operand of ``P V`` and keeps
+    ``l`` as the sum of the float32 ``p``, so an output element moves by
+    at most ``2^-9 sum_j p_j |v_j| / l``: ``2^-9`` times the attention of
+    ``|v|``.  The bound is twice that, for margin.
+
+    Returns:
+      (batch, q_heads, sq, d) float32, shaped like the output.
+    """
+    return 2.0 ** -8 * attention_ref(q.float(), k.float(), v.float().abs(),
+                                     causal=causal, window=window)
+
+
 def check_attention_lengths(sq: int, sk: int, *, causal: bool,
                             window: int) -> None:
     """Refuse a mask over queries and keys of different lengths.

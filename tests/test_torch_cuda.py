@@ -13,7 +13,9 @@ whose float sums are exact in any order below 2^24, and within
 order.  Flash attention: float32 within 2e-4 abs and rel (the JAX
 package's tolerance for its kernel against its oracle); bf16 within that
 plus one bf16 rounding step (2^-7 of the value), since kernel and plain
-version each round a float32 result of their own order of adds.
+version each round a float32 result of their own order of adds, plus
+``ref.attention_rounding_bound``, since the Hopper kernel rounds P to
+bf16 before its product with V (the float32 plain version does not).
 """
 
 import dataclasses
@@ -273,10 +275,19 @@ def _attn(gen, b, hq, hkv, s, d, dtype, sk=None):
             for h, n in ((hq, s), (hkv, sk), (hkv, sk))]
 
 
-def _attn_close(got, want):
-    rtol = 2e-4 + (2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0)
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=2e-4)
+def _attn_close(got, q, k, v, **mask):
+    """The kernel's output against the plain version on the same inputs:
+    within 2e-4 abs and rel, and in bf16 also one bf16 step of the value
+    and the P-rounding bound."""
+    want = ref.attention_ref(q, k, v, **mask).float()
+    tol = 2e-4 + 2e-4 * want.abs()
+    if got.dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * want.abs() + ref.attention_rounding_bound(
+            q, k, v, **mask)
+    diff = (got.float() - want).abs()
+    assert bool((diff <= tol).all()), (
+        f"max_abs_err {float(diff.max())}, largest excess over the "
+        f"tolerance {float((diff - tol).max())}")
 
 
 @pytest.mark.cuda
@@ -284,31 +295,61 @@ def _attn_close(got, want):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_flash_kernel_matches_plain_version(cuda, d, dtype):
-    """MHA, GQA, MQA and a group of 16; causal, window 128 and 1, none;
-    one and three query tiles of 128; one launch a call."""
+    """MHA, GQA, MQA and a group of 16; causal, window 128, 200 (not a
+    tile multiple) and 1, none; one and three query tiles of 128, and 2048
+    tokens (16 K/V tiles: the Hopper kernel's two-stage ring wraps 8
+    times); one launch a call, of the kernel the dispatch names: bf16 at
+    d = 32, 64, 128 on the Hopper kernel, the rest on the CUDA-core one."""
+    want_variant = ("cuda_core_f32" if dtype == torch.float32 else
+                    "cuda_core_bf16" if d == 80 else "wgmma_bf16")
+    assert flash.variant(dtype, d) == want_variant
     gen = torch.Generator(device="cuda").manual_seed(d)
-    for b, hq, hkv in ((2, 4, 4), (1, 8, 2), (1, 4, 1), (1, 16, 1)):
-        for causal, window in ((True, 0), (True, 128), (True, 1),
-                               (False, 0), (False, 128)):
-            for s in (128, 384):
-                q, k, v = _attn(gen, b, hq, hkv, s, d, dtype)
-                before = flash.launches
-                got = ops.flash_attention(q, k, v, causal=causal,
-                                          window=window)
-                want = ref.attention_ref(q, k, v, causal=causal,
-                                         window=window)
-                torch.cuda.synchronize()
-                assert flash.launches == before + 1
-                assert got.dtype == dtype and got.shape == q.shape
-                _attn_close(got, want)
+    cases = [(b, hq, hkv, s, causal, window)
+             for b, hq, hkv in ((2, 4, 4), (1, 8, 2), (1, 4, 1), (1, 16, 1))
+             for causal, window in ((True, 0), (True, 128), (True, 200),
+                                    (True, 1), (False, 0), (False, 128))
+             for s in (128, 384)]
+    cases += [(1, 4, 2, 2048, True, 0), (1, 4, 2, 2048, True, 200)]
+    for b, hq, hkv, s, causal, window in cases:
+        q, k, v = _attn(gen, b, hq, hkv, s, d, dtype)
+        before = flash.launches
+        before_variant = flash.launches_by_variant[want_variant]
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash.launches == before + 1
+        assert flash.launches_by_variant[want_variant] == before_variant + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        _attn_close(got, q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 200),
+                                           (False, 0)])
+def test_flash_kernel_walks_more_tiles_than_sms(cuda, causal, window):
+    """bf16 at glm4-9b's head geometry (32 query heads on 2 KV heads,
+    d = 128) and 1024 tokens: 512 (head, query tile) items, more than an
+    H100 has SMs, so each block of the persistent Hopper kernel walks
+    several, reloading Q and running the K/V ring on across them."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = _attn(gen, 2, 32, 2, 1024, 128, torch.bfloat16)
+    assert (2 * 32 * 1024 // 128
+            > torch.cuda.get_device_properties(cuda).multi_processor_count)
+    before = flash.launches_by_variant["wgmma_bf16"]
+    got = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash.launches_by_variant["wgmma_bf16"] == before + 1
+    _attn_close(got, q, k, v, causal=causal, window=window)
 
 
 @pytest.mark.cuda
 def test_flash_kernel_unequal_lengths_without_a_mask(cuda):
+    """sq = 128 against sk = 384, in float32 and in bf16 (the Hopper
+    kernel)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = _attn(gen, 1, 8, 2, 128, 64, torch.float32, sk=384)
-    _attn_close(flash.flash_attention_cuda(q, k, v, causal=False),
-                ref.attention_ref(q, k, v, causal=False))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _attn(gen, 1, 8, 2, 128, 64, dtype, sk=384)
+        _attn_close(flash.flash_attention_cuda(q, k, v, causal=False),
+                    q, k, v, causal=False)
 
 
 @pytest.mark.cuda
@@ -350,7 +391,8 @@ def test_prefill_on_card_matches_cpu(cuda, attn_impl):
     logits within 3e-2 abs and rel (bf16 products summed in other orders;
     the JAX package's bf16 attention tolerance); ``pallas`` launches the
     kernel once a layer, ``xla_chunked`` at 128 tokens takes the naive
-    path and none."""
+    path and none.  The SMOKE head dim (32) in bf16 runs on the Hopper
+    kernel."""
     cfg = dataclasses.replace(get_config("glm4-9b", smoke=True),
                               attn_impl=attn_impl)
     model = init_params(cfg, generator=torch.Generator(
@@ -358,8 +400,10 @@ def test_prefill_on_card_matches_cpu(cuda, attn_impl):
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
     step = make_prefill_step(cfg)
     before = flash.launches
+    before_wgmma = flash.launches_by_variant["wgmma_bf16"]
     card = step(model, {"tokens": tokens}).float().cpu()
-    assert flash.launches - before == (cfg.n_layers
-                                       if attn_impl == "pallas" else 0)
+    want = cfg.n_layers if attn_impl == "pallas" else 0
+    assert flash.launches - before == want
+    assert flash.launches_by_variant["wgmma_bf16"] - before_wgmma == want
     on_cpu = step(model.to("cpu"), {"tokens": tokens}).float()
     torch.testing.assert_close(card, on_cpu, rtol=3e-2, atol=3e-2)

@@ -14,6 +14,11 @@ normals and the outputs averages of them).
 Where queries and keys differ in length under a mask, the JAX kernel
 (query positions from 0) and the JAX oracle (right-aligned) disagree;
 the port raises there rather than pick one.
+
+The card's bf16 kernel rounds P to bf16 before its product with V.  Its
+arithmetic, emulated here in plain torch, lies within
+``ref.attention_rounding_bound`` of the float32 plain version on the
+same grid.
 """
 
 import numpy as np
@@ -23,7 +28,8 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops, ref as jref
-from repro_torch.kernels import flash_attention as flash, ops
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.kernels import flash_attention as flash, ops, ref
 
 SHAPES = [(1, 4, 4, 256, 64),     # MHA
           (2, 8, 2, 256, 64),     # GQA
@@ -131,3 +137,88 @@ def test_plain_version_refuses_a_bad_group():
                                                     seed=5))
     with pytest.raises(ValueError, match="multiple of kv_heads"):
         ops.flash_attention(q, k, v)
+
+
+def _emulate_wgmma_bf16(q, k, v, *, causal, window, block_k=128):
+    """The Hopper kernel's arithmetic in plain float32 torch: per tile of
+    128 keys the scores times ``scale * log2(e)`` (one float32), the
+    base-2 online softmax from the JAX kernel's NEG_INF, masked scores at
+    -inf, ``l`` summed from the float32 p, and p rounded to bf16 (to
+    nearest even) before its product with v.  Returns the float32 result
+    that the kernel rounds to bf16."""
+    b, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    c = torch.tensor(1.0 / d ** 0.5) * torch.tensor(1.4426950408889634)
+    m = torch.full((b, hq, sq), -1e30)
+    l = torch.zeros((b, hq, sq))
+    acc = torch.zeros((b, hq, sq, d))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, k.shape[2], block_k):
+        s = q.float() @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)
+        kpos = torch.arange(k0, k0 + block_k)[None, :]
+        keep = torch.ones((sq, block_k), dtype=torch.bool)
+        if causal:
+            keep &= kpos <= qpos
+        if window > 0:
+            keep &= kpos > qpos - window
+        s = s.masked_fill(~keep, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + (p.bfloat16().float()
+                                        @ vf[:, :, k0:k0 + block_k])
+        m = m_new
+    return acc / torch.where(l == 0, 1.0, l)[..., None]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_bf16_p_rounding_lies_within_the_stated_bound(b, hq, hkv, s, d,
+                                                      causal, window):
+    """The kernel's arithmetic on bf16 inputs against the float32 plain
+    version of the same inputs: every element within
+    ``ref.attention_rounding_bound``, which the card's bf16 tolerance adds
+    to 2e-4 and one bf16 step."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _inputs(b, hq, hkv, s, d, seed=b + s + d))
+    got = _emulate_wgmma_bf16(q, k, v, causal=causal, window=window)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             window=window)
+    bound = ref.attention_rounding_bound(q, k, v, causal=causal,
+                                         window=window)
+    assert bound.dtype == torch.float32 and bound.shape == want.shape
+    assert bool(((got - want).abs() <= bound).all())
+    assert bool((got != want).any())      # the rounding of P shows
+
+
+def test_bf16_p_rounding_keeps_a_single_key_exact():
+    """Causal with window 1 keeps each query's own key alone: p = 1 (exact
+    in bf16), l = 1, so the emulated kernel returns v exactly, and the
+    bound there is 2^-8 |v|."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _inputs(1, 4, 2, 256, 128, seed=6))
+    got = _emulate_wgmma_bf16(q, k, v, causal=True, window=1)
+    want = v.float().repeat_interleave(2, dim=1)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        ref.attention_rounding_bound(q, k, v, causal=True, window=1),
+        2.0 ** -8 * want.abs(), rtol=0, atol=0)
+
+
+def test_dispatch_is_explicit_by_dtype_and_head_dim():
+    """bf16 at 32, 64 and 128 (every full-width attention head dim of the
+    configs but zamba2's 80, and every SMOKE one) goes to the Hopper
+    kernel; bf16 at 80 and all float32 to the CUDA-core kernel."""
+    assert flash.WGMMA_HEAD_DIMS == (32, 64, 128)
+    for d in flash.HEAD_DIMS:
+        assert flash.variant(torch.float32, d) == "cuda_core_f32"
+        assert flash.variant(torch.bfloat16, d) == (
+            "cuda_core_bf16" if d == 80 else "wgmma_bf16")
+    assert set(flash.launches_by_variant) == set(flash.VARIANTS)
+    head_dims = {get_config(n, smoke=smoke).head_dim for n in ARCH_NAMES
+                 for smoke in (False, True)
+                 if get_config(n).family not in ("ssm",)}
+    assert head_dims == {32, 64, 80, 128}
