@@ -12,22 +12,32 @@ Phases, each printing one JSON line:
    timed as set-up; the Hopper flash kernel's registers, spills and any
    ptxas warning about it (``-Xptxas -v``), and the ``HGMMA`` (wgmma)
    and ``UTMALDG`` (TMA load) instructions in ``cuobjdump -sass`` of
-   ``libflash_attention.so`` (null where ``cuobjdump`` is missing);
+   ``libflash_attention.so``; the atomic instructions in the SASS of
+   ``libhist.so`` by kind (native ``ATOMS.ADD`` / ``REDG`` or a
+   compare-and-swap loop, ``ATOMS.CAS*``, of which there must be none)
+   (the SASS counts are null where ``cuobjdump`` is missing);
 3. check   -- each kernel held against its plain PyTorch version on the
    card over a sweep of shapes: traversal and split gain with
    ``torch.equal`` (bit-identical; NaN rows, passthrough padding trees,
    out-of-range feature ids, empty bins, NaN gains); the histogram
-   (direct and child mode) with ``torch.equal`` on integer-valued g/h,
-   whose float sums are exact in any order below 2^24, and within
-   ``ref.hist_rounding_bound`` (twice the worst-case float32 error of a
-   sum of the bucket's rows) on real g/h, since atomics add in no fixed
-   order, child mode's row counts with ``torch.equal``; the exact inputs
-   that phase 4 times are checked too;
+   (direct and child mode, up to 257 bins at 32 nodes and 6 levels)
+   with ``torch.equal`` against ``ref.hist_levels_fixed`` (the kernel's
+   fixed-point arithmetic in plain PyTorch, run on the card) on every
+   case, with ``torch.equal`` against the plain version on integer-valued
+   g/h, and within ``ref.hist_rounding_bound(..., quantum=ref.
+   hist_quanta(gh))`` of it on real g/h (the worst share of the bound is
+   printed), child mode's row counts with ``torch.equal``; the exact
+   inputs that phase 4 times are checked too.  Each kernel is launched
+   twice on one input and the two results held with ``torch.equal``:
+   that is its ``deterministic`` flag in the kernels line;
 4. time    -- each kernel timed with CUDA events at the shape its path
    gives it (serving: 4096 rows x 32 features, 25 trees of depth 6;
    training: 1M rows x 28 features, 32 nodes, 33 bins, one level),
    beside the plain version, one library call where one computes the
-   same function, and the least time the card could take (bound);
+   same function, and the least time the card could take (bound); the
+   histogram also beside its fixed-point emulation and the times of the
+   float-atomic kernel it replaced (a constant of this script, from the
+   kernel table in PERF.md);
 5. serve   -- the serving entry point (``serve_gbdt.main``) on the
    500 trees x depth 6 x 32 features (k = 32) synthetic forest, 32
    requests of 4096 rows, raw and binned; the launch count is reset just
@@ -42,13 +52,29 @@ Phases, each printing one JSON line:
    must be max_depth histogram and max_depth split-gain launches a tree;
    fit wall-clock, first and last train logloss, holdout accuracy
    through the traversal kernel, and a profile of a fit by kernel;
+   train_repeat: the same fit again from the same seed, every forest
+   field ``torch.equal`` to the first (the histogram and the leaf sums
+   add in fixed point);
 7. train_check -- a 4000 x 6 fit (6 trees, depth 4, k = 16) on the card
    and on the CPU from one injected grid, direct and subtract: structure
-   exact, leaves within 1e-5;
+   exact; leaves within 1e-5 of the CPU's beyond the CPU's own rounding
+   (``boosting.leaf_rounding``: the distance of its row-order float32
+   leaf sums from the exact sums, which the card's fixed-point sums do
+   not share), and the card's leaves within 1e-6 of their exact sums;
+   train_vs_cpu (reported, not checked: the
+   CPU sums in row order, the card in fixed point, so near-ties may
+   split apart): two depth-6 trees at 1M rows from one injected grid on
+   the card and on the CPU, the share of equal split features and, at
+   each tree's first differing node, the gap between the two choices'
+   gains on the CPU's histogram;
 8. attn_check -- the flash-attention kernels held against their plain
    version (``ref.attention_ref``) on the card: MHA, GQA and MQA; causal,
    window 128, window 200 (not a tile multiple) and none; head dims 32,
-   64, 80, 128; 128 and 384 tokens, and 2048 (16 K/V tiles); float32
+   64, 80, 128; 128 and 384 tokens, and 2048 (16 K/V tiles); ragged
+   causal lengths through ``ops.flash_attention(..., ragged=True)`` (the
+   ``xla_chunked`` path: padded to a multiple of 128, sliced back): 1000
+   and 1500 tokens, GQA, float32 and bf16, and window 200 at 1000, and a
+   ragged length with no mask must raise; float32
    within 2e-4 abs and rel (the JAX package's tolerance) and bf16 within
    that plus one bf16 rounding step (2^-7 of the value) plus
    ``ref.attention_rounding_bound`` (the Hopper kernel rounds P to bf16
@@ -76,10 +102,12 @@ Phases, each printing one JSON line:
    the card's own error is at most 1.25 times the CPU's, and a position
    whose argmax differs is a near tie (within twice that error in the
    float32 logits); the bf16 step on the Hopper kernel, the float32 one
-   on the CUDA-core kernel;
+   on the CUDA-core kernel; and a ragged case, 1 x 1000 tokens through
+   ``xla_chunked`` (blockwise, padded on the card), float32 activations,
+   card against CPU within 2e-4 abs and rel;
 13. kernels -- one line listing every ported kernel with its launches,
-   error, times and bound (and for flash attention the variant and its
-   SASS counts).
+   error, times, bound and ``deterministic`` flag (and for flash
+   attention the variant and its SASS counts).
 
 The new phases print their seconds.  Precision: float32 matrix products
 in full float32 (``allow_tf32`` off) and bf16 products reduced in float32
@@ -122,6 +150,10 @@ LM_ARCH, LM_BATCH, LM_SEQ, LM_REQUESTS = "glm4-9b", 2, 4096, 4
 ATTN_F32_TOL = 2e-4               # the JAX package's flash-attention test
 BF16_STEP = 2.0 ** -7             # one bf16 rounding: at most 2^-7 of x
 SASS_OPS = ("HGMMA", "UTMALDG")   # wgmma and TMA loads in cuobjdump -sass
+# the times of the float-atomic histogram kernel this one replaced, direct
+# and child mode, at the timed shape (this script on an H100 80GB HBM3 at
+# 700 W; PERF.md, kernel table)
+REPLACED_HIST_MS = {"direct": 0.3170, "left": 0.2552}
 
 
 def emit(phase: str, **fields) -> None:
@@ -342,15 +374,32 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def sass_counts(lib: Path) -> dict | None:
-    """Instructions of ``SASS_OPS`` in ``cuobjdump -sass`` of ``lib``;
-    None where the toolkit has no ``cuobjdump``."""
+def sass_text(lib: Path) -> str | None:
+    """``cuobjdump -sass`` of ``lib``; None where the toolkit has no
+    ``cuobjdump``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+
+
+def sass_counts(lib: Path) -> dict | None:
+    """Instructions of ``SASS_OPS`` in the SASS of ``lib``."""
+    sass = sass_text(lib)
+    if sass is None:
+        return None
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+
+
+def sass_atomics(lib: Path) -> dict | None:
+    """Atomic instructions in the SASS of ``lib`` by their full opcode
+    (``ATOMS.ADD``, ``ATOMS.CAST.SPIN.64``, ``REDG.E.ADD.64...``)."""
+    sass = sass_text(lib)
+    if sass is None:
+        return None
+    ops = re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", sass)
+    return {op: ops.count(op) for op in sorted(set(ops))}
 
 
 def float32_logits(model, cfg, tokens) -> torch.Tensor:
@@ -374,6 +423,75 @@ def argmax_agreement(got, want) -> tuple[float, torch.Tensor, torch.Tensor]:
     return 1.0 - float(differ.float().mean()), differ, gap
 
 
+def split_gains64(h, *, l2, gamma, min_child_weight) -> torch.Tensor:
+    """(f, nbins) gain of every split bin of a one-node histogram
+    (f, nbins, 2), in float64, -inf where illegal: the formula of
+    ``ref.split_gain_ref`` without its float32 association."""
+    h = h.double()
+    gl, hl = h[..., 0].cumsum(-1), h[..., 1].cumsum(-1)
+    g, hh = gl[..., -1:], hl[..., -1:]
+    gain = 0.5 * (gl ** 2 / (hl + l2) + (g - gl) ** 2 / (hh - hl + l2)
+                  - g ** 2 / (hh + l2)) - gamma
+    ok = (hl >= min_child_weight) & (hh - hl >= min_child_weight)
+    ok[..., -1] = False
+    return torch.where(ok, gain, float("-inf"))
+
+
+def first_difference(card, model, t, x, y) -> dict:
+    """Where tree ``t`` of the card's forest first departs from the CPU
+    model's (heap order), and how far apart the two choices' gains lie
+    there: both evaluated on the CPU's rows and g/h at that node, with the
+    CPU's row-order histogram and with the fixed-point one."""
+    from repro_torch.core import binning, boosting, tree as tree_lib
+    from repro_torch.kernels import ref
+    cpu = model.forest
+    differ = ((card.feature[t] != cpu.feature[t])
+              | (card.split_bin[t] != cpu.split_bin[t]))
+    if not bool(differ.any()):
+        return {"tree": t, "equal": True}
+    i = int(differ.to(torch.uint8).argmax())
+    depth = (i + 1).bit_length() - 1
+    cfg = model.config
+    margin = torch.full((x.shape[0],), model.base_score)
+    for s in range(t):
+        one = tree_lib.Tree(*(a[s] for a in cpu))
+        margin = margin + cfg.learning_rate * tree_lib.predict_raw(
+            one, x, max_depth=cfg.max_depth)
+    g, h = boosting.grad_hess(margin, y, cfg.objective)
+    gh = torch.stack([g, h], 1)
+    bins = binning.bin_features(x, model.candidates[min(
+        t, model.candidates.shape[0] - 1)])
+    node = torch.zeros(x.shape[0], dtype=torch.long)
+    for d in range(depth):                 # the same ancestors on both sides
+        heap = 2 ** d - 1 + node
+        go_left = (torch.gather(bins, 1, cpu.feature[t][heap].clamp(min=0)
+                                .long()[:, None])[:, 0]
+                   <= cpu.split_bin[t][heap])
+        node = 2 * node + (~go_left).long()
+    at = torch.where(node == i - (2 ** depth - 1), 0, -1).to(torch.int32)
+    kw = dict(l2=cfg.l2, gamma=cfg.gamma,
+              min_child_weight=cfg.min_child_weight)
+    out = {"tree": t, "equal": False, "heap_node": i, "depth": depth,
+           "rows": int((at == 0).sum()),
+           "card": [int(card.feature[t][i]), int(card.split_bin[t][i])],
+           "cpu": [int(cpu.feature[t][i]), int(cpu.split_bin[t][i])]}
+    nbins = model.candidates.shape[-1] + 1
+    for name, panel in (
+            ("row_order", ref.hist_ref(bins, at, gh, n_nodes=1,
+                                       nbins=nbins)[0]),
+            ("fixed_point", ref.hist_levels_fixed(bins, at[None], gh,
+                                                  n_nodes=1,
+                                                  nbins=nbins)[0, 0])):
+        gains = split_gains64(panel, **kw)
+
+        def gain(f, b):
+            return 0.0 if f < 0 else float(gains[f, b])
+        g_cpu, g_card = gain(*out["cpu"]), gain(*out["card"])
+        out[f"gain_{name}"] = {"cpu_choice": g_cpu, "card_choice": g_card,
+                               "gap": g_cpu - g_card}
+    return out
+
+
 def logloss(margin, y) -> float:
     return float(torch.nn.functional.binary_cross_entropy_with_logits(
         margin, y))
@@ -386,10 +504,12 @@ def main() -> int:
         return 1
 
     from repro_torch import GBDTConfig, accuracy, fit
+    from repro_torch.core.boosting import leaf_rounding
     from repro_torch.configs import get_config
     from repro_torch.core import proposal, tree as tree_lib
     from repro_torch.data import tabular
-    from repro_torch.kernels import _build, hist, ref, split_gain, traverse
+    from repro_torch.kernels import _build, hist, ops, ref, split_gain, \
+        traverse
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch import serve_gbdt
     from repro_torch.launch.steps import make_prefill_step
@@ -429,9 +549,15 @@ def main() -> int:
     check(flash_sass is None or all(flash_sass[op] > 0 for op in SASS_OPS),
           f"libflash_attention.so lacks wgmma or TMA instructions: "
           f"{flash_sass}")
+    hist_atomics = sass_atomics(_build.BUILD_DIR / "libhist.so")
+    cas_loops = None if hist_atomics is None else sum(
+        c for op, c in hist_atomics.items() if ".CAS" in op)
+    check(not cas_loops, f"libhist.so adds with compare-and-swap loops: "
+          f"{hist_atomics}")
     emit("build", seconds=build_seconds, libraries=sorted(libs),
          ptxas=ptxas, flash_sass_counts=flash_sass,
-         flash_sass_note=None if flash_sass is not None else
+         hist_sass_atomics=hist_atomics, hist_cas_loops=cas_loops,
+         sass_note=None if flash_sass is not None else
          "cuobjdump not found: SASS not counted")
 
     # 3. check + 4. time -----------------------------------------------------
@@ -456,9 +582,18 @@ def main() -> int:
               f"traverse kernel != plain version (binned={binned}, n={n}, "
               f"C={C}, depth={depth}, out_of_range={out_of_range}, "
               f"max_abs_err={err})")
+    repeats = {}          # each kernel launched twice on one input
+    for binned in (False, True):
+        args = make_chunk(rng, n=MICROBATCH, C=TREE_CHUNK, depth=DEPTH,
+                          binned=binned, out_of_range=True)
+        repeats[f"traverse_{binned}"] = torch.equal(
+            traverse.traverse_chunk_cuda(*args, max_depth=DEPTH),
+            traverse.traverse_chunk_cuda(*args, max_depth=DEPTH))
     emit("check", kernel="traverse_chunk", cases=len(cases),
          equal=True, max_abs_err={"f32": max_err[False],
-                                  "i32": max_err[True]})
+                                  "i32": max_err[True]},
+         repeat_equal={"f32": repeats["traverse_False"],
+                       "i32": repeats["traverse_True"]})
 
     timing = {}
     for binned in (False, True):
@@ -483,9 +618,10 @@ def main() -> int:
 
     def check_hist(child, bins, node, gh_int, gh_real, *, n_nodes, nbins,
                    case):
-        """The kernel against its plain version: equal on integer g/h (or
-        on none, given None), within the rounding bound on real g/h; in
-        child mode the row counts equal."""
+        """The kernel against its fixed-point emulation (equal, counts
+        too) and against its plain version: equal on integer g/h (or on
+        none, given None), within the restated rounding bound on real g/h;
+        in child mode the row counts equal."""
         kernel = hist.hist_levels_left_cuda if child else hist.hist_levels_cuda
         plain = ref.hist_levels_left_ref if child else ref.hist_levels_ref
         kw = dict(n_nodes=n_nodes, nbins=nbins)
@@ -494,24 +630,30 @@ def main() -> int:
             if gh is None:
                 continue
             got = kernel(bins, node, gh, **kw)
+            emul = ref.hist_levels_fixed(bins, node, gh, **kw, child=child)
             want = plain(bins, node, gh, **kw)
             torch.cuda.synchronize()
             if child:
-                check(torch.equal(got[1], want[1]),
+                check(torch.equal(got[1], want[1])
+                      and torch.equal(got[1], emul[1]),
                       f"hist kernel's row counts != plain version's ({case})")
-                got, want = got[0], want[0]
+                got, want, emul = got[0], want[0], emul[0]
             check(got.shape == shape + (2,),
                   f"hist output {tuple(got.shape)}, {case}")
+            check(torch.equal(got, emul), f"hist kernel != its fixed-point "
+                  f"emulation ({case}, max_abs_err="
+                  f"{float((got - emul).abs().max())})")
             if gh is gh_int:
                 check(torch.equal(got, want), f"hist kernel != plain "
                       f"version on integer g/h ({case})")
                 continue
-            bound = ref.hist_rounding_bound(bins, node, gh, child=child, **kw)
+            bound = ref.hist_rounding_bound(bins, node, gh, child=child, **kw,
+                                            quantum=ref.hist_quanta(gh))
             diff = (got.double() - want.double()).abs()
             torch.cuda.synchronize()
             check(bool((diff <= bound).all()),
-                  f"hist kernel beyond the rounding bound on real g/h "
-                  f"({case}, max_abs_err={float(diff.max())})")
+                  f"hist kernel beyond the restated rounding bound on real "
+                  f"g/h ({case}, max_abs_err={float(diff.max())})")
             hist_err[child] = max(hist_err[child], float(diff.max()))
             nz = bound > 0
             if bool(nz.any()):
@@ -579,13 +721,25 @@ def main() -> int:
         kernel = hist.hist_levels_left_cuda if child else hist.hist_levels_cuda
         plain = ref.hist_levels_left_ref if child else ref.hist_levels_ref
         kw = dict(n_nodes=n_nodes, nbins=TRAIN_BINS)
-        # the inputs timed here, held against the plain version first
+        # the inputs timed here, held against the plain version first,
+        # and the launch repeated: the same bits
         check_hist(child, bins, node, None, gh, **kw,
                    case=f"the timed training shape, child={child}")
         n_hist_cases += 1
+        first, again = kernel(bins, node, gh, **kw), kernel(bins, node, gh,
+                                                            **kw)
+        repeats[f"hist_{child}"] = (
+            torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                            again[1])
+            if child else torch.equal(first, again))
+        check(repeats[f"hist_{child}"], f"hist kernel (child={child}) "
+              "differs from itself on a repeated launch")
+        del first, again
         ms, issue_ms = cuda_ms(lambda: kernel(bins, node, gh, **kw), iters=50)
         plain_ms, _ = cuda_ms(lambda: plain(bins, node, gh, **kw), iters=5,
                               warmup=2)
+        emulation_ms, _ = cuda_ms(lambda: ref.hist_levels_fixed(
+            bins, node, gh, **kw, child=child), iters=5, warmup=2)
         # the library call: one index_add_ over the precomputed flat index
         # (in child mode of [g, h, 1], the counts riding as a third column)
         adds = ((node[0] % 2 == 0) if child else (node[0] >= 0))
@@ -604,18 +758,27 @@ def main() -> int:
         b_ms, b_by = hist_bound_ms(bins, node, n_nodes, TRAIN_BINS, child)
         train_timing[child] = dict(ms=ms, issue_ms=issue_ms,
                                    plain_ms=plain_ms, library_ms=library_ms,
-                                   bound_ms=b_ms, bound_by=b_by)
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   emulation_ms=emulation_ms,
+                                   replaced_kernel_ms=REPLACED_HIST_MS[
+                                       "left" if child else "direct"])
         if not child:
             panel = kernel(bins, node, gh, **kw)[0]
     emit("check", kernel="hist_levels", cases=n_hist_cases,
-         integer_gh_equal=True, real_gh_within_bound=True,
-         left_counts_equal=True,
+         equal_to_fixed_point_emulation=True, integer_gh_equal=True,
+         real_gh_within_bound=True, left_counts_equal=True,
+         bound="ref.hist_rounding_bound(..., quantum=ref.hist_quanta(gh))",
+         repeat_equal={"direct": repeats["hist_False"],
+                       "left": repeats["hist_True"]},
          max_abs_err={"direct": hist_err[False], "left": hist_err[True]},
          max_err_over_bound={"direct": err_share[False],
                              "left": err_share[True]})
     check_gain(panel, "the timed training panel")
+    repeats["split_gain"] = all(
+        torch.equal(a, b) for a, b in zip(split_gain.split_gain_cuda(panel),
+                                          split_gain.split_gain_cuda(panel)))
     emit("check", kernel="split_gain", cases=n_gain_cases + 1, equal=True,
-         max_abs_err=gain_err)
+         max_abs_err=gain_err, repeat_equal=repeats["split_gain"])
     emit("time", kernel="hist_levels",
          shape=dict(n=TRAIN_ROWS, f=TRAIN_FEATURES, n_nodes=TRAIN_NODES,
                     nbins=TRAIN_BINS, levels=1, left_panel_nodes=
@@ -739,6 +902,19 @@ def main() -> int:
         train_launches[subtract] = dict(hist=n_left if subtract else n_hist,
                                         split_gain=n_gain)
         forests[subtract] = model.forest
+        # the same fit again from the same seed: the same forest, bit for
+        # bit (fixed-point histogram and leaf sums)
+        again = fit(x_tr, y_tr, cfg,
+                    torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda").forest
+        equal_fields = {name: torch.equal(a, b) for name, a, b in
+                        zip(model.forest._fields, model.forest, again)}
+        check(all(equal_fields.values()), f"subtract={subtract}: two fits "
+              f"from one seed differ on the card: {equal_fields}")
+        emit("train_repeat", subtract=subtract, rows=TRAIN_ROWS,
+             n_trees=TRAIN_TREES, max_depth=TRAIN_DEPTH,
+             fields_equal=equal_fields)
+        del again
         check(all(bool(torch.isfinite(a).all()) for a in
                   (model.forest.leaf_value, model.candidates)),
               f"subtract={subtract}: non-finite leaves or candidates")
@@ -797,19 +973,59 @@ def main() -> int:
     for subtract in (False, True):
         cfg = GBDTConfig(n_trees=6, max_depth=4, n_candidates=16,
                          subtract=subtract)
-        on_card = fit(xs, ys, cfg, candidates=grid, device="cuda").forest
-        on_cpu = fit(xs, ys, cfg, candidates=grid, device="cpu").forest
-        leaf_err = float((on_card.leaf_value.cpu() - on_cpu.leaf_value)
-                         .abs().max())
+        card_model = fit(xs, ys, cfg, candidates=grid, device="cuda")
+        cpu_model = fit(xs, ys, cfg, candidates=grid, device="cpu")
+        on_card, on_cpu = card_model.forest, cpu_model.forest
+        # the leaf contract: within 1e-5 of the CPU's leaves beyond the
+        # CPU's own rounding (its row-order float32 sums' distance from the
+        # exact sums, which the card's fixed-point sums do not share); and
+        # the card's leaves within 1e-6 of their own exact sums
+        cpu_rounding = leaf_rounding(cpu_model, xs, ys)
+        card_rounding = float(leaf_rounding(card_model, xs, ys).max())
+        leaf_diff = (on_card.leaf_value.cpu() - on_cpu.leaf_value).abs()
+        leaf_err = float(leaf_diff.max())
         check(torch.equal(on_card.feature.cpu(), on_cpu.feature)
               and torch.equal(on_card.split_bin.cpu(), on_cpu.split_bin)
               and torch.equal(on_card.threshold.cpu(), on_cpu.threshold)
-              and leaf_err <= 1e-5,
+              and bool((leaf_diff.double() <= 1e-5 + cpu_rounding).all())
+              and card_rounding <= 1e-6,
               f"subtract={subtract}: the card's forest differs from the "
-              f"CPU's (leaf max_abs_err={leaf_err})")
+              f"CPU's (leaf max_abs_err={leaf_err}, the CPU's own leaf "
+              f"rounding up to {float(cpu_rounding.max())}, the card's "
+              f"{card_rounding})")
         emit("train_check", subtract=subtract, rows=4000, features=6,
              n_trees=6, max_depth=4, n_candidates=16, structure_equal=True,
-             leaf_max_abs_err=leaf_err)
+             leaf_max_abs_err=leaf_err,
+             leaf_tolerance="1e-5 + the CPU's own leaf rounding",
+             cpu_leaf_rounding_max=float(cpu_rounding.max()),
+             card_leaf_rounding_max=card_rounding)
+
+    # train_vs_cpu: the training cell's rows, two trees from one grid
+    t_phase = time.perf_counter()
+    x_cpu, y_cpu = torch.from_numpy(x[:TRAIN_ROWS]), torch.from_numpy(
+        y[:TRAIN_ROWS])
+    g_cpu = torch.Generator().manual_seed(3)
+    grid = torch.stack([proposal.random_candidates(
+        g_cpu, x_cpu, TRAIN_CANDIDATES) for _ in range(2)])
+    for subtract in (False, True):
+        cfg = GBDTConfig(n_trees=2, max_depth=TRAIN_DEPTH,
+                         n_candidates=TRAIN_CANDIDATES, subtract=subtract)
+        on_card = fit(x_tr, y_tr, cfg, candidates=grid, device="cuda")
+        on_cpu = fit(x_cpu, y_cpu, cfg, candidates=grid, device="cpu")
+        card_forest = tree_lib.Forest(*(a.cpu() for a in on_card.forest))
+        trees = [first_difference(card_forest, on_cpu, t, x_cpu, y_cpu)
+                 for t in range(cfg.n_trees)]
+        emit("train_vs_cpu", subtract=subtract, rows=TRAIN_ROWS,
+             features=TRAIN_FEATURES, n_trees=cfg.n_trees,
+             max_depth=TRAIN_DEPTH, n_candidates=TRAIN_CANDIDATES,
+             checked=False, same_split_features=float(
+                 (card_forest.feature == on_cpu.forest.feature)
+                 .to(torch.float32).mean()),
+             same_trees=[t["equal"] for t in trees], trees=trees,
+             leaf_max_abs_err=float((card_forest.leaf_value
+                                     - on_cpu.forest.leaf_value)
+                                    .abs().max()),
+             seconds=time.perf_counter() - t_phase)
 
     # 8. attn_check -------------------------------------------------------
     t_phase = time.perf_counter()
@@ -848,6 +1064,32 @@ def main() -> int:
                 attn_err[name] = max(attn_err[name], err)
                 attn_share[name] = max(attn_share[name], share)
                 n_attn += 1
+    # ragged causal lengths, as xla_chunked's blockwise path gives them:
+    # padded to a multiple of 128 around one launch, sliced back
+    ragged_err, ragged_share = {}, {}
+    for sq, window in ((1000, 0), (1500, 0), (1000, 200)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_case(1, 8, 2, sq, 128, dtype)
+            name = flash.variant(dtype, 128)
+            before = flash.launches_by_variant[name]
+            got = ops.flash_attention(q, k, v, causal=True, window=window,
+                                      ragged=True)
+            torch.cuda.synchronize()
+            ok, err, share = attn_within(got, q, k, v, causal=True,
+                                         window=window)
+            case = f"s={sq} window={window} {str(dtype)[6:]}"
+            check(ok and got.shape == q.shape and got.dtype == dtype
+                  and flash.launches_by_variant[name] == before + 1,
+                  f"ragged flash ({name}, {case}) != plain version "
+                  f"(max_abs_err={err}, share of tolerance {share})")
+            ragged_err[case], ragged_share[case] = err, share
+            n_attn += 1
+    try:
+        ops.flash_attention(q, k, v, causal=False, ragged=True)
+        raise RuntimeError("chip_smoke: a ragged length with no mask ran "
+                           "on the card; it must raise")
+    except ValueError as e:
+        ragged_refusal = str(e)
     lm_cfg = get_config(LM_ARCH)
     hq, hkv, d = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.head_dim
     q, k, v = attn_case(LM_BATCH, hq, hkv, LM_SEQ, d, torch.bfloat16)
@@ -859,6 +1101,8 @@ def main() -> int:
     ok, slice_err, slice_share = attn_within(got, q, k, v, causal=True)
     check(ok, f"flash kernel != plain version at the prefill shape "
           f"(max_abs_err={slice_err}, share of tolerance {slice_share})")
+    repeats["flash_attention"] = torch.equal(
+        got, flash.flash_attention_cuda(q, k, v, causal=True))
     del got
     emit("attn_check", cases=n_attn + 1, within_tolerance=True,
          tolerance={"f32": {"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
@@ -868,6 +1112,9 @@ def main() -> int:
          max_abs_err={**attn_err, "prefill_shape_wgmma_bf16": slice_err},
          max_share_of_tolerance={**attn_share,
                                  "prefill_shape_wgmma_bf16": slice_share},
+         ragged={"max_abs_err": ragged_err,
+                 "share_of_tolerance": ragged_share,
+                 "no_mask_raises": ragged_refusal},
          seconds=time.perf_counter() - t_phase)
 
     # 9. attn_time --------------------------------------------------------
@@ -993,13 +1240,33 @@ def main() -> int:
           f"prefill_check: {card_launches} flash launches on the card "
           f"({check_by_variant}), want {check_cfg.n_layers} a run: the bf16 "
           "run on the Hopper kernel, the float32 one on the CUDA-core one")
+    # a ragged length through xla_chunked's blockwise path (1000 x 1000
+    # pairs > 512^2), float32 activations: padded to 1024 on the card
+    ragged_cfg = dataclasses.replace(check_cfg, attn_impl="xla_chunked")
+    ragged_tokens = rng.integers(0, check_cfg.vocab_size, size=(1, 1000))
+    before = flash.launches_by_variant["cuda_core_f32"]
+    card_ragged = float32_logits(model, ragged_cfg, ragged_tokens)
+    ragged_launches = flash.launches_by_variant["cuda_core_f32"] - before
+    check(ragged_launches == check_cfg.n_layers,
+          f"prefill_check (1000 tokens, xla_chunked): {ragged_launches} "
+          f"float32 flash launches, want {check_cfg.n_layers}")
+    card_total = flash.launches
     model.to("cpu")
     t_cpu = time.perf_counter()
     on_cpu = step2(model, {"tokens": tokens}).float()
     cpu_f32 = float32_logits(model, check_cfg, tokens)
+    cpu_ragged = float32_logits(model, ragged_cfg, ragged_tokens)
     cpu_seconds = time.perf_counter() - t_cpu
-    check(flash.launches == card_launches,
+    check(flash.launches == card_total,
           "prefill_check: the CPU run launched the flash kernel")
+    ragged_logit_err = float((card_ragged - cpu_ragged).abs().max())
+    check(card_ragged.shape == (1, 1000, check_cfg.vocab_size)
+          and bool(torch.isfinite(card_ragged).all())
+          and bool(((card_ragged - cpu_ragged).abs()
+                    <= ATTN_F32_TOL + ATTN_F32_TOL * cpu_ragged.abs()).all()),
+          f"prefill_check (1000 tokens, xla_chunked): float32 logits on the "
+          f"card differ from the CPU's beyond {ATTN_F32_TOL} (max_abs_err="
+          f"{ragged_logit_err})")
     check(bool(torch.isfinite(card).all()), "prefill_check: card logits "
           "not finite")
     # float32 activations: the kernel's path against the plain one
@@ -1041,8 +1308,12 @@ def main() -> int:
              "cpu": argmax_agreement(on_cpu, cpu_f32)[0]},
          max_argmax_tie_gap_f32=float(gap_f32[differ].abs().max())
          if bool(differ.any()) else 0.0,
+         ragged={"tokens": list(ragged_tokens.shape),
+                 "attn_impl": ragged_cfg.attn_impl,
+                 "flash_launches_cuda_core_f32": ragged_launches,
+                 "f32_logits_max_abs_err": ragged_logit_err},
          cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_phase)
-    del model, card, on_cpu, card_f32, cpu_f32
+    del model, card, on_cpu, card_f32, cpu_f32, card_ragged, cpu_ragged
 
     # 13. kernels ---------------------------------------------------------
     kernels = []
@@ -1060,6 +1331,7 @@ def main() -> int:
             "bound_ms": timing[binned]["bound_ms"],
             "bound_by": timing[binned]["bound_by"],
             "library_ms": None,
+            "deterministic": repeats[f"traverse_{binned}"],
         })
     for child, name, line in ((False, "hist_levels", 65),
                               (True, "hist_levels_left", 123)):
@@ -1077,6 +1349,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "deterministic": repeats[f"hist_{child}"],
         })
     kernels.append({
         "name": "split_gain",
@@ -1091,6 +1364,7 @@ def main() -> int:
         "bound_ms": gain_timing["bound_ms"],
         "bound_by": gain_timing["bound_by"],
         "library_ms": None,
+        "deterministic": repeats["split_gain"],
     })
     kernels.append({
         "name": "flash_attention",
@@ -1107,6 +1381,7 @@ def main() -> int:
         "bound_ms": attn_timing["bound_ms"],
         "bound_by": attn_timing["bound_by"],
         "library_ms": attn_timing["library_ms"],
+        "deterministic": repeats["flash_attention"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -267,6 +267,45 @@ def fit(x, y, cfg: GBDTConfig, generator: torch.Generator | None = None,
                      fit_seconds=time.perf_counter() - t_fit0)
 
 
+def leaf_rounding(model: GBDTModel, x, y) -> torch.Tensor:
+    """(n_trees, 2^max_depth) float64: how far each leaf of ``model``,
+    fitted on ``(x, y)``, lies from the leaf that its rows' exact grad/hess
+    sums give (float64 sums of the same float32 g/h).
+
+    The rounding of the sums a leaf came from: on the CPU a float32 sum in
+    row order, on the card a fixed-point sum within a few ulps of exact.
+    The rounds are replayed as ``fit`` runs them (same margins, so the
+    same g/h); the rows reach their leaves by the model's split bins.
+    """
+    cfg = model.config
+    forest = model.forest
+    dev = forest.leaf_value.device
+    x = torch.as_tensor(x, device=dev).to(torch.float32)
+    y = torch.as_tensor(y, device=dev).to(torch.float32)
+    margin = torch.full((x.shape[0],), model.base_score, dtype=torch.float32,
+                        device=dev)
+    out = []
+    for t in range(forest.n_trees):
+        bins = binning.bin_features(
+            x, model.candidates[min(t, model.candidates.shape[0] - 1)])
+        node = torch.zeros((x.shape[0],), dtype=torch.long, device=dev)
+        for depth in range(cfg.max_depth):
+            heap = 2 ** depth - 1 + node
+            col = forest.feature[t][heap].clamp(min=0).long()
+            left = torch.gather(bins, 1, col[:, None])[:, 0] \
+                <= forest.split_bin[t][heap]
+            node = 2 * node + (~left).long()
+        g, h = grad_hess(margin, y, cfg.objective)
+        exact = torch.zeros((2 ** cfg.max_depth, 2), dtype=torch.float64,
+                            device=dev)
+        exact.index_add_(0, node, torch.stack([g, h], 1).double())
+        leaf = forest.leaf_value[t]
+        out.append((leaf.double() + exact[:, 0] / (exact[:, 1] + cfg.l2))
+                   .abs())
+        margin = margin + cfg.learning_rate * leaf[node]
+    return torch.stack(out)
+
+
 def accuracy(model: GBDTModel, x, y) -> float:
     if model.config.objective != "logistic":
         raise ValueError("accuracy is for classification")

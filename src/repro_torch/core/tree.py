@@ -242,9 +242,9 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor,
         node = node * 2 + torch.where(go_left, 0, 1).to(torch.int32)
 
     # leaf values from the final-level grad/hess totals (on the CPU the
-    # adds run in row order, as the JAX package's scatter does)
-    seg = torch.zeros((2 ** max_depth, 2), dtype=torch.float32, device=dev)
-    seg.index_add_(0, node.long(), gh.to(torch.float32))
+    # adds run in row order, as the JAX package's scatter does; on the
+    # card in fixed point, the same in any order)
+    seg = ops.leaf_sums(node, gh, 2 ** max_depth, backend=spec.backend)
     leaf_value = -seg[:, 0] / (seg[:, 1] + l2)
     tree = Tree(feature, split_bin, threshold, leaf_value)
     out = (tree,)

@@ -115,10 +115,12 @@ def hist_levels(bins: torch.Tensor, node_per_level: torch.Tensor,
     Returns:
       (spec.n_levels, spec.n_nodes, f, nbins, 2) float32: on the CPU bit
       for bit the JAX package's ``hist_levels_ref`` /
-      ``hist_levels_left_ref``; on the card one kernel launch, within
-      float32 rounding of it.  Child mode returns it with the rows of
-      each bucket, (spec.n_levels, spec.n_nodes, f, nbins) int32, exact
-      on both backends: ``(panel, counts)``.
+      ``hist_levels_left_ref``; on the card one kernel launch that sums
+      in fixed point, bit for bit ``ref.hist_levels_fixed`` (the same
+      bits on every run) and within ``ref.hist_rounding_bound(...,
+      quantum=ref.hist_quanta(gh))`` of the CPU's.  Child mode returns
+      it with the rows of each bucket, (spec.n_levels, spec.n_nodes, f,
+      nbins) int32, exact on both backends: ``(panel, counts)``.
     """
     if node_per_level.ndim != 2 or node_per_level.shape[0] != spec.n_levels:
         raise ValueError(
@@ -131,6 +133,28 @@ def hist_levels(bins: torch.Tensor, node_per_level: torch.Tensor,
         return fn(bins, node_per_level, gh, **kw)
     fn = hist.hist_levels_cuda if on_card else ref.hist_levels_ref
     return fn(bins, node_per_level, gh, **kw)
+
+
+def leaf_sums(node: torch.Tensor, gh: torch.Tensor, n_leaves: int,
+              backend: str = "auto") -> torch.Tensor:
+    """(n_leaves, 2) float32 grad/hess totals of the rows of each leaf.
+
+    On the CPU (``ref``) an ``index_add_`` in row order, as the JAX
+    package's scatter adds: bit for bit its leaf sums.  On the card a
+    fixed-point sum (``ref.fixed_point_sums``: an int64 ``index_add_`` of
+    the quantised g/h), which gives the same bits in any order of the
+    card's atomics, so a fit repeats; it lies within a few float32
+    roundings of the CPU's.
+
+    Args:
+      node: (n,) leaf id of each row, in [0, n_leaves).
+      gh: (n, 2) float32 grad/hess panel.
+    """
+    if resolve(backend, gh.device) == "cuda":
+        return ref.fixed_point_sums(node, gh, n_leaves)
+    seg = torch.zeros((n_leaves, 2), dtype=torch.float32, device=gh.device)
+    seg.index_add_(0, node.long(), gh.to(torch.float32))
+    return seg
 
 
 def split_gain(hist_arr: torch.Tensor, *, l2: float = 1.0,
@@ -198,7 +222,8 @@ def traverse_chunk(values: torch.Tensor, feature: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    backend: str = "auto") -> torch.Tensor:
+                    backend: str = "auto",
+                    ragged: bool = False) -> torch.Tensor:
     """Blockwise attention with GQA and an optional sliding window.
 
     q (batch, q_heads, s, d), k and v (batch, kv_heads, s, d).  A CUDA
@@ -210,8 +235,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``|v|``) plus one bf16 rounding of the output.  A causal or window mask
     over queries and keys of different lengths raises on both (see
     ``ref.check_attention_lengths``).
+
+    The kernel takes lengths that are multiples of 128, as the JAX kernel
+    does.  With ``ragged`` (the blockwise path of ``xla_chunked``, which
+    in the JAX package takes any length) a causal call of another length
+    runs the kernel on inputs padded to the next multiple
+    (:func:`pad_ragged`); a ragged call with no mask raises on the card.
     """
     if resolve(backend, q.device) == "cuda":
-        return flash_kernel.flash_attention_cuda(q, k, v, causal=causal,
-                                                 window=window)
+        kernel = flash_kernel.flash_attention_cuda
+        if ragged:
+            return pad_ragged(kernel, q, k, v, causal=causal, window=window)
+        return kernel(q, k, v, causal=causal, window=window)
     return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def pad_ragged(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool, window: int) -> torch.Tensor:
+    """``fn(q, k, v, causal=, window=)`` at any causal length, through
+    lengths that are multiples of the kernel's 128
+    (``flash_attention.SEQ_MULTIPLE``).
+
+    Lengths that are multiples already go to ``fn`` as they are.
+    Otherwise q, k and v are padded with zeros at the tail of the sequence
+    to the next multiple, and the output is sliced back.  That is exact
+    under a causal mask over equal lengths: a padded key comes after every
+    real query, so the mask (and a window with it) hides it, and the
+    padded query rows are thrown away.  With no mask the padded keys
+    would be attended to, so a ragged length raises: the kernel would
+    need a bound on the key length, which it does not take.
+    """
+    multiple = flash_kernel.SEQ_MULTIPLE
+    sq, sk = q.shape[2], k.shape[2]
+    if sq % multiple == 0 and sk % multiple == 0:
+        return fn(q, k, v, causal=causal, window=window)
+    if not causal:
+        raise ValueError(
+            f"attention with no mask over ragged lengths (sq={sq}, sk={sk}) "
+            f"is not built on the card: its kernel takes multiples of "
+            f"{multiple} and would need a bound on the key length")
+    ref.check_attention_lengths(sq, sk, causal=causal, window=window)
+    pad = -sq % multiple
+    padded = [torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v)]
+    return fn(*padded, causal=causal, window=window)[:, :, :sq]

@@ -166,6 +166,114 @@ def hist_ref(bins: torch.Tensor, node: torch.Tensor, gh: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# Fixed-point sums: the CUDA histogram kernel's arithmetic (csrc/hist.cu),
+# and the card's leaf sums.  Integer adds give the same sum in any order,
+# so a sum on the card repeats from run to run.
+# ---------------------------------------------------------------------------
+
+FIXED_POINT_BITS = 62     # a bucket's int64 sum stays within 2^62
+MAX_SHIFT = 100           # 2^-s stays a normal float32
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k as float32, exactly, for integer k in [-126, 127]."""
+    return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def hist_shifts(gh: torch.Tensor) -> torch.Tensor:
+    """(2,) int32: the shift ``s`` of g and of h for a sum over the rows
+    of ``gh`` (n, 2), computed where ``gh`` lies, with no host sync.
+
+    With ``2^N >= n`` and ``max|x| < 2^E`` (``E`` = the float32 exponent
+    field of max|x| less 126, a zero or subnormal maximum counting as field
+    1), ``s = min(62 - N - E, 100)``: each ``x`` becomes the integer
+    ``rint(x * 2^s)``, of magnitude at most ``2^(E+s)``, and a sum of at
+    most ``n`` of them stays within ``n * 2^(E+s) <= 2^62``.
+    """
+    n = gh.shape[0]
+    log2n = (n - 1).bit_length() if n > 1 else 0
+    # |x| as float bits: their order is the float order (NaN, inf last)
+    bits = (gh.to(torch.float32).abs().view(torch.int32).amax(0) if n else
+            torch.zeros(2, dtype=torch.int32, device=gh.device))
+    e = ((bits >> 23) & 0xFF).clamp(min=1) - 126
+    return (FIXED_POINT_BITS - log2n - e).clamp(max=MAX_SHIFT).to(torch.int32)
+
+
+def hist_quanta(gh: torch.Tensor) -> torch.Tensor:
+    """(2,) float32: the quantum ``2^-s`` of g and of h (:func:`hist_shifts`)
+    -- the spacing of the fixed-point grid a sum over these rows uses."""
+    return _pow2(-hist_shifts(gh))
+
+
+def _to_fixed(gh: torch.Tensor):
+    """(q, quantum, finite): ``gh`` (n, 2) as int64 multiples of each
+    column's quantum (round to nearest even), the (2,) quanta, and whether
+    each column is finite in every row."""
+    gh = gh.to(torch.float32)
+    s = hist_shifts(gh)
+    finite = torch.isfinite(gh).all(0)
+    q = torch.round(torch.where(torch.isfinite(gh), gh, 0.0) * _pow2(s))
+    return q.to(torch.int64), _pow2(-s), finite
+
+
+def _from_fixed(total: torch.Tensor, quantum: torch.Tensor,
+                finite: torch.Tensor) -> torch.Tensor:
+    """int64 sums (..., 2) -> float32: one rounding to float32, times the
+    quantum (exact); NaN in a column with a non-finite row."""
+    out = total.to(torch.float32) * quantum
+    return torch.where(finite, out, float("nan"))
+
+
+def fixed_point_sums(index: torch.Tensor, gh: torch.Tensor,
+                     size: int) -> torch.Tensor:
+    """(size, 2) float32: the rows of ``gh`` (n, 2) summed by ``index``
+    (n,), in fixed point (:func:`hist_shifts`).  The same in any order of
+    adds, on any device.  A non-finite value in a column makes that
+    column NaN."""
+    q, quantum, finite = _to_fixed(gh)
+    total = torch.zeros((size, 2), dtype=torch.int64, device=gh.device)
+    total.index_add_(0, index.long(), q)
+    return _from_fixed(total, quantum, finite)
+
+
+def hist_levels_fixed(bins: torch.Tensor, node_per_level: torch.Tensor,
+                      gh: torch.Tensor, *, n_nodes: int, nbins: int,
+                      child: bool = False):
+    """The CUDA kernel's arithmetic in plain PyTorch: its result bit for
+    bit, on any device.
+
+    Each column of ``gh`` becomes int64 multiples of its launch-wide
+    quantum (:func:`hist_shifts`, from all ``n`` rows); the buckets sum
+    them with an int64 ``index_add_``; each sum is rounded once to float32
+    and scaled by the quantum.  A non-finite g (or h) in any row makes every
+    g (or h) sum NaN.  The buckets and the rows that drop out are those of
+    :func:`hist_levels_ref` (direct) or :func:`hist_levels_left_ref`
+    (``child``).
+
+    Returns:
+      (L, n_nodes, f, nbins, 2) float32; with ``child``, also the
+      (L, n_nodes, f, nbins) int32 row counts.
+    """
+    node = _parent_ids(node_per_level) if child else node_per_level
+    L, n = node.shape
+    f = bins.shape[1]
+    key, valid = _bucket_keys(bins, node, n_nodes, nbins)
+    q, quantum, finite = _to_fixed(gh)
+    total = torch.zeros((L * n_nodes * f * nbins, 2), dtype=torch.int64,
+                        device=bins.device)
+    total.index_add_(0, key[valid], q[None, :, None, :].expand(
+        L, n, f, 2)[valid])
+    out = _from_fixed(total, quantum, finite).reshape(L, n_nodes, f, nbins, 2)
+    if not child:
+        return out
+    keys = key[valid]
+    cnt = torch.zeros(L * n_nodes * f * nbins, dtype=torch.int32,
+                      device=bins.device)
+    cnt.index_add_(0, keys, torch.ones_like(keys, dtype=torch.int32))
+    return out, cnt.reshape(out.shape[:-1])
+
+
+# ---------------------------------------------------------------------------
 # Split gain.
 # ---------------------------------------------------------------------------
 
@@ -255,7 +363,7 @@ def split_gain_ref(hist: torch.Tensor, *, l2: float = 1.0,
 
 def hist_rounding_bound(bins: torch.Tensor, node_per_level: torch.Tensor,
                         gh: torch.Tensor, *, n_nodes: int, nbins: int,
-                        child: bool = False) -> torch.Tensor:
+                        child: bool = False, quantum=0) -> torch.Tensor:
     """How far two float32 histograms of the same rows, summed in any two
     orders, may lie apart, bucket by bucket.
 
@@ -265,6 +373,13 @@ def hist_rounding_bound(bins: torch.Tensor, node_per_level: torch.Tensor,
     Algorithms*, 4.2), so two orders lie within twice that.  A bucket of
     0 or 1 rows has bound 0: one add to zero is exact.
 
+    With a non-zero ``quantum`` (a float, or the (2,) quanta of g and h,
+    :func:`hist_quanta`), one of the two is a fixed-point sum
+    (:func:`hist_levels_fixed`): each of its m terms is rounded to the
+    quantum (at most ``q/2`` each) and its exact sum rounded once to
+    float32, so the bound gains ``m q / 2 + u (sum|x| + m q / 2)``.  At
+    ``quantum=0`` it is the bound above, unchanged.
+
     Returns:
       (L, n_nodes, f, nbins, 2) float64, shaped like the histogram.
     """
@@ -273,7 +388,12 @@ def hist_rounding_bound(bins: torch.Tensor, node_per_level: torch.Tensor,
     abs_sum = hist_levels_ref(bins, node, gh.abs(), **kw).double()
     m = hist_levels_ref(bins, node, torch.ones_like(gh), **kw).double()
     gamma = (m - 1).clamp(min=0) * 2.0 ** -24
-    return 2 * gamma / (1 - gamma) * abs_sum
+    bound = 2 * gamma / (1 - gamma) * abs_sum
+    if isinstance(quantum, (int, float)) and quantum == 0:
+        return bound
+    half = m * torch.as_tensor(quantum, dtype=torch.float64,
+                               device=bins.device) / 2
+    return bound + half + 2.0 ** -24 * (abs_sum + half)
 
 
 def attention_rounding_bound(q: torch.Tensor, k: torch.Tensor,

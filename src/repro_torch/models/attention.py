@@ -11,8 +11,11 @@ path, as ``attention.py:188-217`` of the JAX package does:
   naive float32 softmax below;
 * ``xla_chunked`` (the default) above that size also goes to
   ``ops.flash_attention``.  The JAX package runs a pure-JAX online
-  softmax there, "identical math to the Pallas kernel" in its own words;
-  the port keeps one blockwise implementation per device.
+  softmax there, "identical math to the Pallas kernel" in its own words,
+  at any length; the port keeps one blockwise implementation per device
+  and on the card pads a causal call of a length that is not a multiple
+  of 128 to the next one (``ops.pad_ragged``: exact).  ``pallas`` takes
+  multiples of 128 only, as the JAX kernel does.
 
 Layouts: activations (B, S, D); q (B, S, Hq, Dh) and k/v (B, S, Hkv, Dh)
 out of the projections; the kernel takes (B, H, S, Dh).  Grouped queries
@@ -124,6 +127,7 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
                      window=window).to(x.dtype)
     else:
         heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
-        out = kernel_ops.flash_attention(*heads, causal=causal,
-                                         window=window).transpose(1, 2)
+        out = kernel_ops.flash_attention(
+            *heads, causal=causal, window=window,
+            ragged=cfg.attn_impl == "xla_chunked").transpose(1, 2)
     return p.wo(out.reshape(b, sq, cfg.n_heads * cfg.head_dim))

@@ -244,3 +244,189 @@ def test_child_mode_counts_rows(L, n_nodes, nbins):
     spec = HistSpec(n_nodes=n_nodes, nbins=nbins, n_levels=L, subtract=True)
     got = ops.hist_levels(*args, spec)
     assert torch.equal(got[0], panel) and torch.equal(got[1], counts)
+
+
+# -- the CUDA kernel's fixed-point arithmetic, emulated on the CPU -----------
+#
+# The card's histogram sums int64 multiples of a launch-wide quantum
+# (``ref.hist_levels_fixed`` is its arithmetic, bit for bit): integer adds
+# are the same in any order, so the result repeats; each term is rounded
+# to the quantum and the sum once to float32, so it lies within
+# ``hist_rounding_bound(..., quantum=ref.hist_quanta(gh))`` of the plain
+# row-order sum.
+
+def _tensors(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+@pytest.mark.parametrize("child", [False, True], ids=["direct", "left"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fixed_point_ignores_the_order_of_rows(child, seed):
+    bins, node, gh = _tensors(*_case(3000, 4, 9, 4, 2, seed=seed,
+                                     child=child))
+    kw = dict(n_nodes=4, nbins=9, child=child)
+    want = ref.hist_levels_fixed(bins, node, gh, **kw)
+    perm = torch.randperm(3000, generator=torch.Generator().manual_seed(seed))
+    got = ref.hist_levels_fixed(bins[perm], node[:, perm], gh[perm], **kw)
+    if child:
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("child", [False, True], ids=["direct", "left"])
+@pytest.mark.parametrize("L,n_nodes,nbins", [(1, 1, 2), (3, 4, 9),
+                                             (2, 6, 33)])
+def test_fixed_point_equals_plain_on_integer_gh(child, L, n_nodes, nbins):
+    """Integer-valued g/h lie on the grid and their sums stay below 2^24:
+    the fixed-point sum is the plain version's, bit for bit (counts too)."""
+    bins, node, _ = _case(1500, 5, nbins, n_nodes, L, seed=nbins,
+                          child=child)
+    rng = np.random.default_rng(L)
+    gh = rng.integers(-3, 4, size=(1500, 2)).astype(np.float32)
+    gh[:, 1] = np.abs(gh[:, 1])
+    args = _tensors(bins, node, gh)
+    kw = dict(n_nodes=n_nodes, nbins=nbins)
+    got = ref.hist_levels_fixed(*args, **kw, child=child)
+    want = (ref.hist_levels_left_ref if child else ref.hist_levels_ref)(
+        *args, **kw)
+    if child:
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    assert torch.equal(got, want)
+
+
+def _assert_within_restated_bound(bins, node, gh, *, n_nodes, nbins, child):
+    args = (bins, node, gh)
+    kw = dict(n_nodes=n_nodes, nbins=nbins)
+    got = ref.hist_levels_fixed(*args, **kw, child=child)
+    plain = (_left_sums if child else ref.hist_levels_ref)(*args, **kw)
+    if child:
+        got = got[0]
+    bound = ref.hist_rounding_bound(*args, **kw, child=child,
+                                    quantum=ref.hist_quanta(gh))
+    diff = (got.double() - plain.double()).abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+    # and against the exact sum (float64: these sums have few terms of
+    # 24 bits): within the fixed-point part of the bound
+    parent = ref._parent_ids(node) if child else node
+    key, valid = ref._bucket_keys(bins, parent, n_nodes, nbins)
+    L, n = parent.shape
+    exact = torch.zeros((got.numel() // 2, 2), dtype=torch.float64)
+    exact.index_add_(0, key[valid], gh.double()[None, :, None, :].expand(
+        L, n, bins.shape[1], 2)[valid])
+    exact = exact.reshape(got.shape)
+    m = ref.hist_levels_ref(bins, parent, torch.ones_like(gh), **kw).double()
+    half = m * ref.hist_quanta(gh).double() / 2
+    assert bool(((got.double() - exact).abs()
+                 <= half + 2.0 ** -24 * (exact.abs() + half)).all())
+
+
+@pytest.mark.parametrize("child", [False, True], ids=["direct", "left"])
+@pytest.mark.parametrize("nbins", [2, 9, 33])
+@pytest.mark.parametrize("n_nodes", [1, 4])
+@pytest.mark.parametrize("L", [1, 3])
+def test_fixed_point_within_restated_bound(child, L, n_nodes, nbins):
+    """The pinned workloads of the bit-equality tests above."""
+    seed = L * (10 if child else 100) + nbins
+    bins, node, gh = _tensors(*_case(700, 5, nbins, n_nodes, L, seed=seed,
+                                     child=child))
+    _assert_within_restated_bound(bins, node, gh, n_nodes=n_nodes,
+                                  nbins=nbins, child=child)
+
+
+@pytest.mark.parametrize("child", [False, True], ids=["direct", "left"])
+def test_fixed_point_single_row_buckets_near_the_quantum(child):
+    """Buckets of one row whose values lie near max|x| * 2^-20, beside
+    one row at the maximum: single-row buckets have a plain bound of 0,
+    and there the fixed-point part of the bound is all there is."""
+    rng = np.random.default_rng(8)
+    n, f = 64, 3
+    bins = np.arange(n * f, dtype=np.int32).reshape(n, f) % 257
+    node = np.zeros((1, n), np.int32)
+    gh = (rng.normal(size=(n, 2)) * 2.0 ** -20).astype(np.float32)
+    gh[0] = [3.0, 5.0]
+    gh[1] = [2.0 ** -20 * 3.0 * (1 + 2.0 ** -23), 2.0 ** -21]
+    bins, node, gh = _tensors(bins, node, gh)
+    plain_bound = ref.hist_rounding_bound(bins, node, gh, n_nodes=1,
+                                          nbins=257, child=child)
+    assert float(plain_bound.max()) == 0.0
+    _assert_within_restated_bound(bins, node, gh, n_nodes=1, nbins=257,
+                                  child=child)
+
+
+def test_fixed_point_scale_never_overflows():
+    """n = 2^24 rows, all at max|x| = 2^20 and just below 2^21: the int64
+    sums stay within 2^62 and come back exact (a sum of 2^24 equal
+    powers of two, or within one float32 rounding of it)."""
+    n = 2 ** 24
+    bins = torch.zeros((n, 1), dtype=torch.int32)
+    node = torch.zeros((1, n), dtype=torch.int32)
+    for top in (2.0 ** 20, float(np.nextafter(np.float32(2 ** 21),
+                                             np.float32(0)))):
+        gh = torch.full((n, 2), top, dtype=torch.float32)
+        s = ref.hist_shifts(gh)
+        assert n * top * 2.0 ** float(s[0]) < 2.0 ** 62
+        got = ref.hist_levels_fixed(bins, node, gh, n_nodes=1, nbins=1)
+        want = np.float32(np.float64(n) * top)
+        assert float(got[0, 0, 0, 0, 0]) == want, (top, float(s[0]))
+        assert float(got[0, 0, 0, 0, 1]) == want
+        del gh, got
+
+
+def test_fixed_point_non_finite_makes_its_column_nan():
+    """A NaN or inf g (or h) in any row: every g (or h) sum is NaN, so the
+    histogram is never finite where the plain version's is not; the
+    other column is unchanged."""
+    bins, node, gh = _tensors(*_case(400, 3, 9, 4, 1, seed=3))
+    node[:, 5] = 0                     # the row made non-finite adds
+    kw = dict(n_nodes=4, nbins=9)
+    clean = ref.hist_levels_fixed(bins, node, gh, **kw)
+    for col, bad in ((0, float("nan")), (1, float("inf")),
+                     (0, float("-inf"))):
+        g = gh.clone()
+        g[5, col] = bad
+        got = ref.hist_levels_fixed(bins, node, g, **kw)
+        assert bool(torch.isnan(got[..., col]).all())
+        assert torch.equal(got[..., 1 - col], clean[..., 1 - col])
+        plain = ref.hist_levels_ref(bins, node, g, **kw)
+        assert not bool(torch.isfinite(plain[..., col]).all())
+
+
+def test_rounding_bound_at_quantum_zero_is_unchanged():
+    bins, node, gh = _tensors(*_case(600, 4, 9, 4, 2, seed=4))
+    kw = dict(n_nodes=4, nbins=9)
+    abs_sum = ref.hist_levels_ref(bins, node, gh.abs(), **kw).double()
+    m = ref.hist_levels_ref(bins, node, torch.ones_like(gh), **kw).double()
+    gamma = (m - 1).clamp(min=0) * 2.0 ** -24
+    want = 2 * gamma / (1 - gamma) * abs_sum
+    assert torch.equal(ref.hist_rounding_bound(bins, node, gh, **kw), want)
+    assert torch.equal(ref.hist_rounding_bound(bins, node, gh, **kw,
+                                               quantum=0), want)
+    q = ref.hist_quanta(gh)
+    wider = ref.hist_rounding_bound(bins, node, gh, **kw, quantum=q)
+    assert bool((wider >= want).all()) and bool((wider > want).any())
+
+
+@pytest.mark.parametrize("child", [False, True], ids=["direct", "left"])
+def test_fixed_point_against_pallas_interpret_within_bound(child):
+    bins, node, gh = _case(257, 3, 8, 4, 2, seed=12, child=child)
+    fn = jhist.hist_levels_left_pallas if child else jhist.hist_levels_pallas
+    want = np.asarray(fn(jnp.asarray(bins), jnp.asarray(node),
+                         jnp.asarray(gh), n_nodes=4, nbins=8,
+                         interpret=True))
+    args = _tensors(bins, node, gh)
+    got = ref.hist_levels_fixed(*args, n_nodes=4, nbins=8, child=child)
+    got = (got[0] if child else got).numpy()
+    bound = ref.hist_rounding_bound(*args, n_nodes=4, nbins=8, child=child,
+                                    quantum=ref.hist_quanta(args[2])).numpy()
+    assert (np.abs(got.astype(np.float64) - want) <= bound).all()
+
+
+def test_hist_shifts_follow_rows_and_maxima():
+    gh = torch.tensor([[0.5, 0.0], [-3.0, 0.0]])
+    # n = 2 -> N = 1; max|g| = 3 < 2^2 -> s = 62 - 1 - 2; h all zero: the
+    # exponent field counts as 1 (E = -125), s capped at 100
+    assert ref.hist_shifts(gh).tolist() == [59, 100]
+    assert ref.hist_quanta(gh).tolist() == [2.0 ** -59, 2.0 ** -100]
+    assert ref.hist_shifts(gh.repeat(3, 1)).tolist() == [62 - 3 - 2, 100]

@@ -47,7 +47,7 @@ from repro.launch import steps as jsteps
 from repro.models import layers as jlayers, model as jmodel
 from repro_torch.checkpoint import npz
 from repro_torch.configs import get_config
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import layers, init_params
 
@@ -238,6 +238,62 @@ def test_xla_chunked_goes_blockwise_above_512_squared(monkeypatch):
     logits = make_prefill_step(tcfg)(model, {"tokens": tok})
     assert len(calls) == tcfg.n_layers
     _assert_logits_match(_f32(logits), want)
+
+
+def test_xla_chunked_prefill_at_a_ragged_length(monkeypatch):
+    """1000 tokens, not a multiple of 128: the JAX package's
+    ``_flash_xla`` takes it, and so does the port's blockwise path (on the
+    card by padding, ``ops.pad_ragged``; here its plain version)."""
+    jcfg, tcfg, params, model = _pair("glm4-9b", {})
+    tok = np.random.default_rng(10).integers(
+        0, jcfg.vocab_size, size=(1, 1000)).astype(np.int32)
+    want = _f32(jax.jit(jsteps.make_prefill_step(jcfg))(
+        params, {"tokens": jnp.asarray(tok)}))
+    calls = []
+    real = ref.attention_ref
+    monkeypatch.setattr(ref, "attention_ref",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    logits = make_prefill_step(tcfg)(model, {"tokens": tok})
+    assert tuple(logits.shape) == (1, 1000, jcfg.vocab_size)
+    assert len(calls) == tcfg.n_layers
+    _assert_logits_match(_f32(logits), want)
+
+
+@pytest.mark.parametrize("seq,window", [(1000, 0), (1000, 200), (130, 0),
+                                        (130, 64), (256, 0)])
+def test_pad_ragged_is_exact(seq, window):
+    """Padding q, k and v at the tail to a multiple of 128 and slicing the
+    output back is exact under a causal mask: with ``ref.attention_ref``
+    as the inner function it matches the unpadded call within 1e-6 in
+    float32."""
+    gen = torch.Generator().manual_seed(seq + window)
+    q = torch.randn((1, 4, seq, 32), generator=gen)
+    k, v = (torch.randn((1, 2, seq, 32), generator=gen) for _ in range(2))
+    lengths = []
+
+    def inner(*a, **kw):
+        lengths.append(a[0].shape[2])
+        return ref.attention_ref(*a, **kw)
+    got = ops.pad_ragged(inner, q, k, v, causal=True, window=window)
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
+    assert lengths == [-(-seq // 128) * 128]
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_pad_ragged_refuses_no_mask_and_unequal_lengths():
+    q = torch.zeros((1, 2, 1000, 32))
+    with pytest.raises(ValueError, match="no mask over ragged"):
+        ops.pad_ragged(ref.attention_ref, q, q, q, causal=False, window=0)
+    with pytest.raises(ValueError, match="as many queries as keys"):
+        ops.pad_ragged(ref.attention_ref, q[:, :, :900], q, q, causal=True,
+                       window=0)
+    # multiples of 128 go through as they are, with or without a mask
+    q = torch.randn((1, 2, 256, 32), generator=torch.Generator().manual_seed(0))
+    for causal in (False, True):
+        assert torch.equal(ops.pad_ragged(ref.attention_ref, q, q, q,
+                                          causal=causal, window=0),
+                           ref.attention_ref(q, q, q, causal=causal))
 
 
 def test_prefill_refuses_a_config_of_other_parameters():

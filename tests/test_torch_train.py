@@ -38,6 +38,7 @@ reasons:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -53,7 +54,7 @@ from repro.data import tabular as jtabular
 from repro.kernels.ops import HistSpec as JHistSpec
 from repro_torch.core import boosting, proposal, tree
 from repro_torch.data import tabular
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import HistSpec
 
 
@@ -240,6 +241,105 @@ def test_build_tree_needs_the_frontier(hist_levels_case):
     with pytest.raises(ValueError, match="frontier"):
         tree.build_tree(bins, gh, cand, max_depth=4,
                         spec=HistSpec(n_nodes=4, nbins=9))
+
+
+@pytest.mark.parametrize("depth", [1, 4, 6])
+@pytest.mark.parametrize("case", ["hist_levels_case", "telemetry_case"])
+def test_leaf_sums_ref_path_is_build_trees_leaves(request, case, depth):
+    """``ops.leaf_sums`` on the CPU is the row-order ``index_add_`` that
+    ``build_tree`` had inline: its leaves, bit for bit."""
+    bins, gh, cand = (torch.from_numpy(a) for a in
+                      request.getfixturevalue(case))
+    spec = HistSpec(n_nodes=2 ** (depth - 1), nbins=cand.shape[1] + 1)
+    t, node = tree.build_tree(bins, gh, cand, max_depth=depth, spec=spec,
+                              return_leaf_nodes=True)
+    seg = torch.zeros((2 ** depth, 2))
+    seg.index_add_(0, node.long(), gh)
+    got = ops.leaf_sums(node, gh, 2 ** depth)
+    assert torch.equal(got, seg)
+    assert torch.equal(ops.leaf_sums(node, gh, 2 ** depth, backend="ref"),
+                       seg)
+    assert torch.equal(t.leaf_value, -got[:, 0] / (got[:, 1] + 1.0))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.leaf_sums(node, gh, 2 ** depth, backend="cuda")
+
+
+@pytest.mark.parametrize("case", ["hist_levels_case", "telemetry_case"])
+def test_leaf_sums_fixed_point_path(request, case):
+    """The card's path (``ref.fixed_point_sums``, run here on the CPU):
+    leaves within 1e-5 of the row-order ones (the leaf contract), sums
+    within the histogram's restated rounding bound (a leaf is a one-bin
+    histogram), and the same bits in any order of the rows."""
+    bins, gh, cand = (torch.from_numpy(a) for a in
+                      request.getfixturevalue(case))
+    spec = HistSpec(n_nodes=8, nbins=cand.shape[1] + 1)
+    _, node = tree.build_tree(bins, gh, cand, max_depth=4, spec=spec,
+                              return_leaf_nodes=True)
+    want = ops.leaf_sums(node, gh, 16, backend="ref")
+    got = ref.fixed_point_sums(node, gh, 16)
+    bound = ref.hist_rounding_bound(
+        torch.zeros((node.shape[0], 1), dtype=torch.int32), node[None], gh,
+        n_nodes=16, nbins=1, quantum=ref.hist_quanta(gh))
+    assert bool(((got.double() - want.double()).abs()
+                 <= bound.reshape(16, 2)).all())
+    torch.testing.assert_close(-got[:, 0] / (got[:, 1] + 1.0),
+                               -want[:, 0] / (want[:, 1] + 1.0),
+                               rtol=0, atol=1e-5)
+    for seed in range(4):
+        perm = torch.randperm(node.shape[0],
+                              generator=torch.Generator().manual_seed(seed))
+        assert torch.equal(ref.fixed_point_sums(node[perm], gh[perm], 16),
+                           got)
+
+
+@pytest.mark.parametrize("subtract", [False, True],
+                         ids=["direct", "subtract"])
+def test_fixed_point_fit_keeps_the_restated_leaf_contract(monkeypatch,
+                                                          subtract):
+    """The card's arithmetic (fixed-point histograms and leaf sums), run
+    here on the CPU, on chip_smoke's 4000 x 6 train_check workload: the
+    CPU fit's trees, structure exact; its leaves lie within 1.6e-7 of
+    their exact (float64) sums, where the CPU's row-order float32 sums
+    lie up to 1.4e-5 away.  So the card is held to the CPU's leaves
+    within 1e-5 beyond the CPU's own rounding."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4000, 6)).astype(np.float32)
+    y = (x @ rng.normal(size=6) > 0).astype(np.float32)
+    gen = torch.Generator().manual_seed(0)
+    grid = torch.stack([proposal.random_candidates(
+        gen, torch.from_numpy(x), 16) for _ in range(6)])
+    cfg = repro_torch.GBDTConfig(n_trees=6, max_depth=4, n_candidates=16,
+                                 subtract=subtract)
+    cpu = repro_torch.fit(x, y, cfg, candidates=grid, device="cpu")
+    monkeypatch.setattr(ref, "hist_levels_ref", functools.partial(
+        ref.hist_levels_fixed, child=False))
+    monkeypatch.setattr(ref, "hist_levels_left_ref", functools.partial(
+        ref.hist_levels_fixed, child=True))
+    monkeypatch.setattr(ops, "leaf_sums", lambda node, gh, n, backend:
+                        ref.fixed_point_sums(node, gh, n))
+    fixed = repro_torch.fit(x, y, cfg, candidates=grid, device="cpu")
+    monkeypatch.undo()
+    for a, b in zip(fixed.forest[:3], cpu.forest[:3]):
+        assert torch.equal(a, b)
+    cpu_rounding = boosting.leaf_rounding(cpu, x, y)
+    assert float(cpu_rounding.max()) > 1e-5        # why it is restated
+    assert float(boosting.leaf_rounding(fixed, x, y).max()) <= 1e-6
+    diff = (fixed.forest.leaf_value - cpu.forest.leaf_value).abs().double()
+    assert bool((diff <= 1e-5 + cpu_rounding).all())
+
+
+def test_leaf_rounding_replays_the_fit():
+    """``leaf_rounding`` replays a fit's rounds: one value a leaf, small
+    for float32 sums of 1000 rows, and 0 at an empty leaf (0 on both
+    sides)."""
+    x, y = _toy(1000, 4, 2)
+    cfg = repro_torch.GBDTConfig(n_trees=3, max_depth=3, n_candidates=8)
+    model = repro_torch.fit(x, y, cfg, device="cpu")
+    r = boosting.leaf_rounding(model, x, y)
+    assert r.shape == (3, 8) and r.dtype == torch.float64
+    assert float(r.max()) < 1e-4
+    empty = model.forest.leaf_value == 0
+    assert bool((r[empty] == 0).all())
 
 
 # -- fit ---------------------------------------------------------------------
