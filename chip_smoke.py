@@ -17,9 +17,13 @@ Phases, each printing one JSON line:
    compare-and-swap loop, ``ATOMS.CAS*``, of which there must be none)
    (the SASS counts are null where ``cuobjdump`` is missing);
 3. check   -- each kernel held against its plain PyTorch version on the
-   card over a sweep of shapes: traversal and split gain with
+   card over a sweep of shapes: both traversal forms and split gain with
    ``torch.equal`` (bit-identical; NaN rows, passthrough padding trees,
-   out-of-range feature ids, empty bins, NaN gains); the histogram
+   out-of-range feature ids, empty bins, NaN gains; the forest sum at
+   1 to 50 000 rows, 1 to 500 trees (24, 25, 26 among them), depths 0, 1,
+   6, 9 and 13, 600 features, the affine step, a first tree of -0.0
+   leaves; split gain at 1 to 8192 bins and on the timed training
+   panel); the histogram
    (direct and child mode, up to 257 bins at 32 nodes and 6 levels)
    with ``torch.equal`` against ``ref.hist_levels_fixed`` (the kernel's
    fixed-point arithmetic in plain PyTorch, run on the card) on every
@@ -31,19 +35,24 @@ Phases, each printing one JSON line:
    twice on one input and the two results held with ``torch.equal``:
    that is its ``deterministic`` flag in the kernels line;
 4. time    -- each kernel timed with CUDA events at the shape its path
-   gives it (serving: 4096 rows x 32 features, 25 trees of depth 6;
-   training: 1M rows x 28 features, 32 nodes, 33 bins, one level),
+   gives it (serving: 4096 rows x 32 features, the whole 500-tree forest
+   of depth 6 for the forest sum, a chunk of 25 trees for the per-tree
+   form; training: 1M rows x 28 features, 32 nodes, 33 bins, one level),
    beside the plain version, one library call where one computes the
-   same function, and the least time the card could take (bound); the
+   same function, the least time the card could take (bound) and the
+   launch floor (an empty kernel, ``torch.cuda._sleep(0)``, timed the
+   same way: what a kernel of a few microseconds can still reach); the
+   forest sum also on one block's 32 rows alone; the
    histogram also beside its fixed-point emulation and the times of the
    float-atomic kernel it replaced (a constant of this script, from the
    kernel table in PERF.md);
 5. serve   -- the serving entry point (``serve_gbdt.main``) on the
    500 trees x depth 6 x 32 features (k = 32) synthetic forest, 32
-   requests of 4096 rows, raw and binned; the launch count is reset just
-   before each run and read just after, and must be 20 per request;
-   margins and bin ids checked bit for bit against the same model on the
-   CPU, NaN rows included; a profile of raw requests by kernel;
+   requests of 4096 rows, raw and binned; the launch counts are reset
+   just before each run and read just after: one forest-sum launch a
+   request and no per-tree launch; margins and bin ids checked bit for
+   bit against the same model on the CPU, NaN rows included; a profile
+   of raw requests by kernel;
 6. train   -- ``repro_torch.fit(device="cuda")`` on the higgs-like
    ``gaussian_classification`` (28 features, 1M training rows, 100k held
    out; HIGGS has 11M rows, the one cut), ``GBDTConfig(n_trees=20,
@@ -106,8 +115,10 @@ Phases, each printing one JSON line:
    ``xla_chunked`` (blockwise, padded on the card), float32 activations,
    card against CPU within 2e-4 abs and rel;
 13. kernels -- one line listing every ported kernel with its launches,
-   error, times, bound and ``deterministic`` flag (and for flash
-   attention the variant and its SASS counts).
+   error, times, bound, launch floor and ``deterministic`` flag (and for
+   flash attention the variant and its SASS counts).  The per-tree
+   traversal is on no path any more (``launches`` 0, ``on_main_path``
+   false): it is listed as the counterpart of ``ops.traverse_chunk``.
 
 The new phases print their seconds.  Precision: float32 matrix products
 in full float32 (``allow_tf32`` off) and bf16 products reduced in float32
@@ -236,11 +247,13 @@ def bound_ms(nbytes, ops) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def traverse_bound_ms(n, f, C, depth) -> tuple[float, str]:
-    """Each input read once and the output written once, against one
-    compare per (row, tree, level)."""
+def traverse_bound_ms(n, f, C, depth, out_per_row=None) -> tuple[float, str]:
+    """Each input read once and the output written once (C values a row,
+    or ``out_per_row``: 1 for the forest sum), against one compare per
+    (row, tree, level)."""
     n_inner = 2 ** depth - 1
-    nbytes = 4 * (n * f + 2 * C * n_inner + C * (n_inner + 1) + n * C)
+    out = C if out_per_row is None else out_per_row
+    nbytes = 4 * (n * f + 2 * C * n_inner + C * (n_inner + 1) + n * out)
     return bound_ms(nbytes, n * C * depth)
 
 
@@ -608,9 +621,103 @@ def main() -> int:
         timing[binned] = dict(ms=ms, issue_ms=issue_ms, plain_ms=plain_ms,
                               plain_issue_ms=plain_issue_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
+    # the launch floor: an empty kernel, timed as every kernel is
+    floor_ms, floor_issue_ms = cuda_ms(lambda: torch.cuda._sleep(0),
+                                       iters=500)
+    emit("time", kernel="launch_floor", op="torch.cuda._sleep(0)",
+         ms=floor_ms, issue_ms=floor_issue_ms)
+    for t in timing.values():
+        t["floor_ms"] = floor_ms
     emit("time", kernel="traverse_chunk",
          shape=dict(n=MICROBATCH, f=FEATURES, C=TREE_CHUNK, depth=DEPTH),
          f32=timing[False], i32=timing[True])
+
+    # the forest-sum form: bit for bit its plain version (the leaf values
+    # added in tree order onto +0.0, then base + scale * sum)
+    forest_err = {False: 0.0, True: 0.0}
+
+    def check_forest(args, depth, case, **affine):
+        out = traverse.forest_sum_cuda(*args, max_depth=depth, **affine)
+        exp = ref.forest_sum_ref(*args, max_depth=depth, **affine)
+        torch.cuda.synchronize()
+        binned = args[0].dtype == torch.int32
+        check(out.shape == (args[0].shape[0],) and out.dtype == torch.float32,
+              f"forest_sum output {tuple(out.shape)} {out.dtype} ({case})")
+        err = float((out - exp).abs().max()) if out.numel() else 0.0
+        forest_err[binned] = max(forest_err[binned], err)
+        check(torch.equal(out, exp), f"forest_sum kernel != plain version "
+              f"({case}, max_abs_err={err})")
+        return out
+
+    forest_cases = 0
+    for binned in (False, True):
+        for n in (1, 4095, 4096, 50_000):
+            for T in (1, 24, 25, 26, TREES):
+                for depth in (0, 1, DEPTH):
+                    args = make_chunk(rng, n=n, C=T, depth=depth,
+                                      binned=binned)
+                    check_forest(args, depth, f"binned={binned} n={n} T={T} "
+                                 f"depth={depth}")
+                    forest_cases += 1
+        # out-of-range ids and the affine step at the serving shape; a
+        # deep forest (one tree a stage), a wide one (values not staged)
+        for kw, affine in (
+                (dict(n=MICROBATCH, C=TREES, depth=DEPTH, out_of_range=True),
+                 {}),
+                (dict(n=MICROBATCH, C=TREES, depth=DEPTH),
+                 dict(base=0.25, scale=0.3)),
+                (dict(n=3000, C=37, depth=13, f=8), {}),
+                (dict(n=2000, C=70, depth=9), dict(base=-1.5, scale=0.1)),
+                (dict(n=777, C=70, depth=5, f=600), {})):
+            args = make_chunk(rng, binned=binned, **kw)
+            check_forest(args, kw["depth"], f"binned={binned} {kw} "
+                         f"{affine}", **affine)
+            forest_cases += 1
+        # a first tree of -0.0 leaves alone: 0 + (-0) is +0
+        feature, cmp, leaf = make_chunk(rng, n=1, C=1, depth=DEPTH,
+                                        binned=binned)[1:]
+        leaf = torch.full_like(leaf, -0.0)
+        values = make_chunk(rng, n=MICROBATCH, C=1, depth=DEPTH,
+                            binned=binned)[0]
+        out = check_forest((values, feature, cmp, leaf), DEPTH,
+                           f"binned={binned}, leaves -0.0")
+        check(not bool(torch.signbit(out).any()),
+              "forest_sum kept a -0.0 leaf as the sum; it must be +0.0")
+        forest_cases += 1
+        args = make_chunk(rng, n=MICROBATCH, C=TREES, depth=DEPTH,
+                          binned=binned, out_of_range=True)
+        repeats[f"forest_sum_{binned}"] = torch.equal(
+            traverse.forest_sum_cuda(*args, max_depth=DEPTH),
+            traverse.forest_sum_cuda(*args, max_depth=DEPTH))
+        check(repeats[f"forest_sum_{binned}"], "forest_sum kernel differs "
+              "from itself on a repeated launch")
+    emit("check", kernel="forest_sum", cases=forest_cases, equal=True,
+         max_abs_err={"f32": forest_err[False], "i32": forest_err[True]},
+         repeat_equal={"f32": repeats["forest_sum_False"],
+                       "i32": repeats["forest_sum_True"]})
+
+    forest_timing = {}
+    for binned in (False, True):
+        args = make_chunk(rng, n=MICROBATCH, C=TREES, depth=DEPTH,
+                          binned=binned)
+        ms, issue_ms = cuda_ms(lambda: traverse.forest_sum_cuda(
+            *args, max_depth=DEPTH), iters=500)
+        plain_ms, plain_issue_ms = cuda_ms(lambda: ref.forest_sum_ref(
+            *args, max_depth=DEPTH), iters=10, warmup=2)
+        b_ms, b_by = traverse_bound_ms(MICROBATCH, FEATURES, TREES, DEPTH,
+                                       out_per_row=1)
+        # one block alone (32 rows): the chain of groups a block walks,
+        # without the other blocks' reads of the forest from L2
+        one_block_ms, _ = cuda_ms(lambda: traverse.forest_sum_cuda(
+            *(a[:32] if i == 0 else a for i, a in enumerate(args)),
+            max_depth=DEPTH), iters=500)
+        forest_timing[binned] = dict(
+            ms=ms, issue_ms=issue_ms, plain_ms=plain_ms,
+            plain_issue_ms=plain_issue_ms, bound_ms=b_ms, bound_by=b_by,
+            floor_ms=floor_ms, one_block_ms=one_block_ms)
+    emit("time", kernel="forest_sum",
+         shape=dict(n=MICROBATCH, f=FEATURES, T=TREES, depth=DEPTH),
+         f32=forest_timing[False], i32=forest_timing[True])
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     hist_err = {False: 0.0, True: 0.0}
@@ -697,10 +804,15 @@ def main() -> int:
               f"max_abs_err={err})")
 
     n_gain_cases = 0
+    # l2 = 0 with no weight floor gives NaN gains; gamma = inf makes every
+    # legal gain -inf
     params = [(1.0, 0.0, 1e-6), (1.0, 0.1, 1.0), (0.0, 0.0, 0.0),
-              (0.5, 0.3, 0.5)]
+              (0.5, 0.3, 0.5), (1.0, float("inf"), 0.0)]
     for n_nodes, f in ((1, 1), (5, 3), (TRAIN_NODES, TRAIN_FEATURES)):
-        for nbins in (1, 2, 9, TRAIN_BINS, 65, 257):
+        for nbins in (1, 2, 9, 16, 17, TRAIN_BINS, 65, 256, 257, 300, 1000,
+                      4097, split_gain.MAX_BINS):
+            if n_nodes * f * nbins > 2_000_000:
+                continue
             h = gain_case(gen, n_nodes, f, nbins)
             for l2, gamma, mcw in params:
                 check_gain(h, f"n_nodes={n_nodes}, f={f}, nbins={nbins}",
@@ -759,6 +871,7 @@ def main() -> int:
         train_timing[child] = dict(ms=ms, issue_ms=issue_ms,
                                    plain_ms=plain_ms, library_ms=library_ms,
                                    bound_ms=b_ms, bound_by=b_by,
+                                   floor_ms=floor_ms,
                                    emulation_ms=emulation_ms,
                                    replaced_kernel_ms=REPLACED_HIST_MS[
                                        "left" if child else "direct"])
@@ -790,7 +903,8 @@ def main() -> int:
     plain_ms, _ = cuda_ms(lambda: ref.split_gain_ref(panel), iters=20)
     b_ms, b_by = split_gain_bound_ms(TRAIN_NODES * TRAIN_FEATURES, TRAIN_BINS)
     gain_timing = dict(ms=ms, issue_ms=issue_ms, plain_ms=plain_ms,
-                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       floor_ms=floor_ms)
     emit("time", kernel="split_gain",
          shape=dict(n_nodes=TRAIN_NODES, f=TRAIN_FEATURES, nbins=TRAIN_BINS),
          **gain_timing)
@@ -799,19 +913,21 @@ def main() -> int:
     argv = ["--device", "cuda", "--trees", str(TREES), "--depth", str(DEPTH),
             "--features", str(FEATURES), "--candidates", str(CANDIDATES),
             "--microbatch", str(MICROBATCH), "--requests", str(REQUESTS)]
-    per_request = -(-TREES // TREE_CHUNK)
-    launches = {}
+    launches, chunk_launches = {}, {}
     for binned in (False, True):
-        traverse.launches = 0
+        traverse.launches = traverse.forest_launches = 0
         report = serve_gbdt.main(argv + (["--binned"] if binned else []))
-        launches[binned] = traverse.launches
-        check(launches[binned] == per_request * (REQUESTS + WARMUP_REQUESTS),
-              f"binned={binned}: {launches[binned]} traversal launches for "
-              f"{REQUESTS + WARMUP_REQUESTS} requests, want {per_request} "
-              "per request")
+        launches[binned] = traverse.forest_launches
+        chunk_launches[binned] = traverse.launches
+        check(launches[binned] == REQUESTS + WARMUP_REQUESTS
+              and chunk_launches[binned] == 0,
+              f"binned={binned}: {launches[binned]} forest-sum and "
+              f"{chunk_launches[binned]} per-tree launches for "
+              f"{REQUESTS + WARMUP_REQUESTS} requests, want one forest-sum "
+              "launch a request and no per-tree launch")
         emit("serve", binned=binned, launches=launches[binned],
-             launches_per_request=per_request, engine=report.engine,
-             summary=report.summarize())
+             launches_per_request=1, per_tree_launches=chunk_launches[binned],
+             engine=report.engine, summary=report.summarize())
 
     model = serve_gbdt.synthetic_gbdt(
         n_trees=TREES, max_depth=DEPTH, n_features=FEATURES,
@@ -852,9 +968,12 @@ def main() -> int:
     for _ in range(4):
         model.predict(x_dev, output="margin")
     torch.cuda.synchronize()
-    emit("profile", requests=4, binned=False,
-         wall_ms_per_request=(time.perf_counter() - t0) / 4 * 1e3,
-         device_us_per_request=sum(r["device_us_per_request"] for r in rows),
+    wall_ms = (time.perf_counter() - t0) / 4 * 1e3
+    device_us = sum(r["device_us_per_request"] for r in rows)
+    emit("profile", requests=4, binned=False, wall_ms_per_request=wall_ms,
+         device_us_per_request=device_us,
+         device_idle_share=1 - device_us / 1e3 / wall_ms,
+         kernel_launches_per_request=sum(r["count"] for r in rows) / 4,
          by_kernel=rows[:8])
 
     # 6. train ------------------------------------------------------------
@@ -864,7 +983,8 @@ def main() -> int:
     x_tr, y_tr = x_dev[:TRAIN_ROWS], y_dev[:TRAIN_ROWS]
     x_ho, y_ho = x_dev[TRAIN_ROWS:], y_dev[TRAIN_ROWS:]
     counters = (hist, "launches"), (hist, "left_launches"), \
-        (split_gain, "launches"), (traverse, "launches"), (flash, "launches")
+        (split_gain, "launches"), (traverse, "launches"), \
+        (traverse, "forest_launches"), (flash, "launches")
 
     def reset():
         for mod, name in counters:
@@ -890,11 +1010,12 @@ def main() -> int:
                     torch.Generator(device="cuda").manual_seed(0),
                     device="cuda")
         wall = time.perf_counter() - t0
-        n_hist, n_left, n_gain, n_trav, n_flash = read()
+        n_hist, n_left, n_gain, n_trav, n_forest, n_flash = read()
         per_fit = TRAIN_TREES * TRAIN_DEPTH
         check((n_left if subtract else n_hist) == per_fit
               and (n_hist if subtract else n_left) == 0
-              and n_gain == per_fit and n_trav == 0 and n_flash == 0,
+              and n_gain == per_fit and n_trav + n_forest == 0
+              and n_flash == 0,
               f"subtract={subtract}: launches hist {n_hist}, hist_left "
               f"{n_left}, split_gain {n_gain}, traverse {n_trav}; want "
               f"{per_fit} of the fit's histogram mode and {per_fit} "
@@ -922,9 +1043,11 @@ def main() -> int:
             *(a[:1] for a in model.forest)))
         loss_first = logloss(first.predict(x_tr, output="margin"), y_tr)
         loss_last = logloss(model.predict(x_tr, output="margin"), y_tr)
-        traverse.launches = 0
+        traverse.forest_launches = 0
         acc = accuracy(model, x_ho, y_ho)
-        check(traverse.launches > 0, "holdout predict launched no traversal")
+        check(traverse.forest_launches == 1,
+              f"holdout predict made {traverse.forest_launches} forest-sum "
+              "launches, want 1")
         check(loss_last < loss_first and acc > 0.6,
               f"subtract={subtract}: logloss {loss_first} -> {loss_last}, "
               f"holdout accuracy {acc}")
@@ -937,7 +1060,8 @@ def main() -> int:
              launches=dict(hist_levels=n_hist, hist_levels_left=n_left,
                            split_gain=n_gain),
              train_logloss_first=loss_first, train_logloss_last=loss_last,
-             holdout_accuracy=acc, holdout_traverse_launches=traverse.launches)
+             holdout_accuracy=acc,
+             holdout_forest_sum_launches=traverse.forest_launches)
     same = float((forests[False].feature == forests[True].feature)
                  .to(torch.float32).mean())
 
@@ -1169,16 +1293,17 @@ def main() -> int:
               "not finite")
         next_tokens.append(logits[:, -1].argmax(-1).tolist())
         del logits
-    n_hist, n_left, n_gain, n_trav, n_flash = read()
+    n_hist, n_left, n_gain, n_trav, n_forest, n_flash = read()
     lm_launches = n_flash
     lm_by_variant = dict(flash.launches_by_variant)
     check(n_flash == lm_cfg.n_layers * LM_REQUESTS
           and lm_by_variant[lm_variant] == n_flash
-          and n_hist + n_left + n_gain + n_trav == 0,
+          and n_hist + n_left + n_gain + n_trav + n_forest == 0,
           f"{n_flash} flash launches for {LM_REQUESTS} requests ("
           f"{lm_by_variant}), want {lm_cfg.n_layers} a request, all "
           f"{lm_variant} (and no other kernel: hist {n_hist}, hist_left "
-          f"{n_left}, split_gain {n_gain}, traverse {n_trav})")
+          f"{n_left}, split_gain {n_gain}, traverse {n_trav}, forest_sum "
+          f"{n_forest})")
     p50 = float(np.median(walls))
     emit("prefill", arch=LM_ARCH, n_layers=lm_cfg.n_layers,
          d_model=lm_cfg.d_model, n_heads=hq, n_kv_heads=hkv, head_dim=d,
@@ -1318,18 +1443,37 @@ def main() -> int:
     # 13. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
+        t = forest_timing[binned]
+        kernels.append({
+            "name": f"forest_sum_{suffix}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/traverse.cu",
+            "replaces": "src/repro/kernels/traverse.py:73",
+            "launches": launches[binned],
+            "launches_per_request": 1,
+            "max_abs_err": forest_err[binned],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "floor_ms": floor_ms,
+            "library_ms": None,
+            "deterministic": repeats[f"forest_sum_{binned}"],
+        })
+    for binned, suffix in ((False, "f32"), (True, "i32")):
         kernels.append({
             "name": f"traverse_chunk_{suffix}",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/traverse.cu",
             "replaces": "src/repro/kernels/traverse.py:73",
-            "launches": launches[binned],
-            "launches_per_request": per_request,
+            "launches": chunk_launches[binned],
+            "on_main_path": False,
             "max_abs_err": max_err[binned],
             "ms": timing[binned]["ms"],
             "plain_ms": timing[binned]["plain_ms"],
             "bound_ms": timing[binned]["bound_ms"],
             "bound_by": timing[binned]["bound_by"],
+            "floor_ms": floor_ms,
             "library_ms": None,
             "deterministic": repeats[f"traverse_{binned}"],
         })
@@ -1348,6 +1492,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
+            "floor_ms": floor_ms,
             "library_ms": t["library_ms"],
             "deterministic": repeats[f"hist_{child}"],
         })
@@ -1363,6 +1508,7 @@ def main() -> int:
         "plain_ms": gain_timing["plain_ms"],
         "bound_ms": gain_timing["bound_ms"],
         "bound_by": gain_timing["bound_by"],
+        "floor_ms": floor_ms,
         "library_ms": None,
         "deterministic": repeats["split_gain"],
     })
@@ -1380,6 +1526,7 @@ def main() -> int:
         "plain_ms": attn_timing["plain_ms"],
         "bound_ms": attn_timing["bound_ms"],
         "bound_by": attn_timing["bound_by"],
+        "floor_ms": floor_ms,
         "library_ms": attn_timing["library_ms"],
         "deterministic": repeats["flash_attention"],
     })

@@ -126,7 +126,9 @@ class GBDTModel:
             :attr:`bin_edges`) or ids from :meth:`bin_features`.
           backend: 'auto' | 'cuda' | 'ref' (or a JAX package name);
             default the config's, and 'auto' follows the model's device.
-          tree_chunk: trees per traversal launch.
+          tree_chunk: trees per chunk of the plain version on the CPU
+            (no bit changes with it); accepted without effect on the
+            card, where the forest is one launch.
         """
         x = torch.as_tensor(x, device=self.device)
         if binned and x.is_floating_point():

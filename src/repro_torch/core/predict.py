@@ -1,18 +1,17 @@
 """Batched forest inference engine: level-synchronous traversal.
 
-The stacked :class:`repro_torch.core.tree.Forest` is traversed a chunk
-of ``C`` trees at a time: one :func:`repro_torch.kernels.ops.
-traverse_chunk` call (one CUDA launch on the card) advances every
-(row, tree) pair of the chunk through all depth levels and returns the
-per-tree leaf values ``(rows, C)``.
+The whole stacked :class:`repro_torch.core.tree.Forest` goes to one
+:func:`repro_torch.kernels.ops.forest_sum` call, which advances every
+(row, tree) pair through all depth levels and adds each row's leaf
+values in tree order: on the card one launch of the forest-sum kernel a
+request (counted in ``repro_torch.kernels.traverse.forest_launches``),
+on the CPU the plain version, ``tree_chunk`` trees at a time.
 
-Exactness: the per-tree leaf values are added onto the accumulator in
-tree order, across and within chunks, so the ensemble sum is the same
-float32 adds in the same order as the per-tree oracle and the JAX
-engine: **bit-identical** (padding trees are passthrough with leaf 0,
-adding exact zeros).  That is one small elementwise launch per tree.
-On the card the traversal launches are counted in
-``repro_torch.kernels.traverse.launches``: one per chunk.
+Exactness: the leaf values are added onto a +0.0 accumulator in tree
+order, so the ensemble sum is the same float32 adds in the same order as
+the per-tree oracle and the JAX engine: **bit-identical** (the JAX
+engine's padding trees add exact zeros onto a sum that is never -0.0,
+which changes no bit, so none are added here).
 
 The binned path (``binned=True``) traverses on int32 bin ids
 (``bin <= split_bin``).  NaN contract: raw NaN compares False at every
@@ -22,7 +21,6 @@ bin's routing.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..kernels import ops
@@ -31,41 +29,20 @@ from . import tree as tree_lib
 
 DEFAULT_TREE_CHUNK = 25
 
-# split bin of a binned passthrough padding tree: above any bin id
-_BINNED_PASSTHROUGH = 2 ** 20
 
-
-def _forest_sum(forest: tree_lib.Forest, values: torch.Tensor,
-                max_depth: int, spec: TraverseSpec) -> torch.Tensor:
-    t = forest.n_trees
-    c = spec.tree_chunk
-    pad = -t % c
-    feat, leafv = forest.feature, forest.leaf_value
-    cmp = forest.split_bin if spec.binned else forest.threshold
-    if pad:
-        # passthrough zero-leaf padding trees: every row descends the
-        # all-left spine into leaf 0 and contributes an exact 0.0
-        feat = torch.cat([feat, feat.new_full((pad, feat.shape[1]), -1)])
-        cmp = torch.cat([cmp, cmp.new_full(
-            (pad, cmp.shape[1]),
-            _BINNED_PASSTHROUGH if spec.binned else np.inf)])
-        leafv = torch.cat([leafv, leafv.new_zeros((pad, leafv.shape[1]))])
-    acc = torch.zeros((values.shape[0],), dtype=torch.float32,
-                      device=values.device)
-    for s in range(0, t + pad, c):
-        vals = ops.traverse_chunk(values, feat[s:s + c], cmp[s:s + c],
-                                  leafv[s:s + c], spec,
-                                  max_depth=max_depth)   # (n, C)
-        # accumulate in tree order: bit-identical to the per-tree scan
-        for i in range(c):
-            acc += vals[:, i]
-    return acc
-
-
-def _as_values(values, spec: TraverseSpec,
-               device: torch.device) -> torch.Tensor:
+def _forest_sum(forest: tree_lib.Forest, values, max_depth: int,
+                spec: TraverseSpec, *, base: float = 0.0,
+                scale: float = 1.0) -> torch.Tensor:
+    """``base + scale * sum`` on the forest's device; ``(0,)`` for an
+    empty batch without a launch."""
     dtype = torch.int32 if spec.binned else torch.float32
-    return torch.as_tensor(values, device=device).to(dtype).contiguous()
+    values = torch.as_tensor(values, device=forest.feature.device).to(
+        dtype).contiguous()
+    if values.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=values.device)
+    cmp = forest.split_bin if spec.binned else forest.threshold
+    return ops.forest_sum(values, forest.feature, cmp, forest.leaf_value,
+                          spec, max_depth=max_depth, base=base, scale=scale)
 
 
 def margin(forest: tree_lib.Forest, values, base_score: float,
@@ -75,13 +52,14 @@ def margin(forest: tree_lib.Forest, values, base_score: float,
     :meth:`GBDTModel.predict`.  An empty ``(0, f)`` batch returns
     ``(0,)`` without a launch.
 
-    The closing affine transform is two separate operations, never a
+    The closing affine transform is two separate roundings, never a
     fused multiply-add: fused, ``base + lr * sum`` would round once where
-    the JAX engine rounds twice (a 1-ulp drift).
+    the JAX engine rounds twice (a 1-ulp drift).  On the card the
+    forest-sum kernel applies them (``__fmul_rn`` then ``__fadd_rn``), so
+    a request is one launch; on the CPU two PyTorch operations.
     """
-    total = forest_predict(forest, values, max_depth=max_depth, spec=spec)
-    scaled = learning_rate * total
-    return base_score + scaled
+    return _forest_sum(forest, values, max_depth, spec, base=base_score,
+                       scale=learning_rate)
 
 
 def forest_predict(forest: tree_lib.Forest, values, *, max_depth: int,
@@ -96,6 +74,8 @@ def forest_predict(forest: tree_lib.Forest, values, *, max_depth: int,
         forest's device.
       spec: full :class:`TraverseSpec`; overrides the ``binned`` /
         ``tree_chunk`` / ``backend`` conveniences when given.
+        ``tree_chunk`` sets the plain version's chunks on the CPU and
+        changes no bit; on the card the forest is one launch.
 
     Returns:
       (n,) float32 sum of per-tree leaf values; ``(0,)`` for an empty
@@ -104,7 +84,4 @@ def forest_predict(forest: tree_lib.Forest, values, *, max_depth: int,
     if spec is None:
         spec = TraverseSpec(tree_chunk=tree_chunk or DEFAULT_TREE_CHUNK,
                             binned=binned, backend=backend)
-    values = _as_values(values, spec, forest.feature.device)
-    if values.shape[0] == 0:
-        return torch.zeros((0,), dtype=torch.float32, device=values.device)
     return _forest_sum(forest, values, max_depth, spec)

@@ -175,9 +175,10 @@ class TraverseSpec:
     """Static description of a batched forest-traversal workload.
 
     Attributes:
-      tree_chunk: trees advanced together per level-synchronous chunk,
-        one kernel launch each.  Forests are padded with passthrough
-        zero-leaf trees up to a chunk multiple.
+      tree_chunk: trees advanced together per level-synchronous chunk of
+        the plain version (:func:`ref.forest_sum_ref`).  It changes no
+        bit of a sum.  On the card it is accepted without effect: the
+        forest-sum kernel takes the whole forest in one launch.
       binned: traverse on int32 bin ids (``bin <= split_bin``) instead of
         raw float32 thresholds (``x <= threshold``).  NaN rows bin to the
         LAST bin, while raw NaN compares False and routes RIGHT.
@@ -218,6 +219,27 @@ def traverse_chunk(values: torch.Tensor, feature: torch.Tensor,
                                             max_depth=max_depth)
     return ref.traverse_chunk_ref(values, feature, cmp, leaf,
                                   max_depth=max_depth)
+
+
+def forest_sum(values: torch.Tensor, feature: torch.Tensor,
+               cmp: torch.Tensor, leaf: torch.Tensor, spec: TraverseSpec, *,
+               max_depth: int, base: float = 0.0,
+               scale: float = 1.0) -> torch.Tensor:
+    """``base + scale * sum`` of each row's leaf values over a whole
+    stacked forest (feature, cmp (T, 2^max_depth - 1), leaf (T,
+    2^max_depth); values and cmp as in :func:`traverse_chunk`).
+
+    The leaf values are added in tree order onto +0.0, and the affine
+    step is two float32 roundings: on both backends the JAX engine's
+    margin, bit for bit.  On the card one launch of the forest-sum kernel;
+    on the CPU the plain version, ``spec.tree_chunk`` trees at a time.
+    Returns (n,) float32.
+    """
+    kw = dict(max_depth=max_depth, base=base, scale=scale)
+    if resolve(spec.backend, values.device) == "cuda":
+        return traverse.forest_sum_cuda(values, feature, cmp, leaf, **kw)
+    return ref.forest_sum_ref(values, feature, cmp, leaf,
+                              tree_chunk=spec.tree_chunk, **kw)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -69,6 +69,40 @@ def traverse_chunk_ref(values: torch.Tensor, feature: torch.Tensor,
     return leaf[tree, node]
 
 
+def forest_sum_ref(values: torch.Tensor, feature: torch.Tensor,
+                   cmp: torch.Tensor, leaf: torch.Tensor, *, max_depth: int,
+                   tree_chunk: int = 25, base: float = 0.0,
+                   scale: float = 1.0) -> torch.Tensor:
+    """``base + scale * sum`` of each row's leaf values over a stacked
+    forest: the plain version of the forest-sum kernel.
+
+    The forest goes through :func:`traverse_chunk_ref` ``tree_chunk``
+    trees at a time, and each tree's leaf values are added in tree order
+    onto an accumulator that starts at +0.0, as the JAX engine's chunk
+    scan adds them.  That sum is never -0.0 (``0 + (-0)`` is +0), so the
+    JAX engine's padding trees, which add exact zeros, change no bit and
+    none are added here; ``tree_chunk`` changes no bit either.  The affine
+    step is two float32 roundings, never a fused multiply-add; at ``base =
+    0, scale = 1`` it returns the sum itself.
+
+    Args:
+      feature, cmp, leaf: (T, 2^max_depth - 1), (T, 2^max_depth - 1),
+        (T, 2^max_depth): the whole stacked forest.
+
+    Returns:
+      (n,) float32.
+    """
+    acc = torch.zeros((values.shape[0],), dtype=torch.float32,
+                      device=values.device)
+    for s in range(0, feature.shape[0], tree_chunk):
+        vals = traverse_chunk_ref(values, feature[s:s + tree_chunk],
+                                  cmp[s:s + tree_chunk],
+                                  leaf[s:s + tree_chunk], max_depth=max_depth)
+        for i in range(vals.shape[1]):       # tree order
+            acc += vals[:, i]
+    return base + scale * acc
+
+
 # ---------------------------------------------------------------------------
 # Histograms.  Bucket (level, node, feature, bin) of the flat panel is
 # ((level * n_nodes + node) * f + feature) * nbins + bin; each bucket

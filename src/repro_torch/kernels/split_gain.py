@@ -6,7 +6,9 @@ contiguity and alignment, raises on anything the kernel does not take,
 and never falls back to the plain version (``ref.split_gain_ref``).  The
 CPU path is chosen by ``ops.split_gain`` from the tensor's device.
 
-``launches`` counts the kernel launches of this process.
+``launches`` counts the kernel launches of this process.  ``MAX_BINS``
+is the most bins a row may have: a row and its scan levels sit in one
+block's shared memory (``kMaxBins`` in the source).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 from . import _build
 
 launches = 0
+
+MAX_BINS = 8192
 
 _fns: dict = {}
 
@@ -58,8 +62,9 @@ def split_gain_cuda(hist: torch.Tensor, *, l2: float = 1.0,
     if hist.data_ptr() % 8:
         raise ValueError("split_gain_cuda: hist is not 8-byte aligned")
     n_nodes, f, nbins, _ = hist.shape
-    if nbins < 1:
-        raise ValueError("split_gain_cuda: hist has no bins")
+    if not 1 <= nbins <= MAX_BINS:
+        raise ValueError(f"split_gain_cuda: {nbins} bins; the kernel takes "
+                         f"1 to {MAX_BINS}")
     gains = torch.empty((n_nodes, f), dtype=torch.float32, device=hist.device)
     idx = torch.empty((n_nodes, f), dtype=torch.int32, device=hist.device)
     rows = n_nodes * f

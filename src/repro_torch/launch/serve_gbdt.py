@@ -129,7 +129,10 @@ def main(argv=None) -> PredictReport:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     p.add_argument("--backend", default=None, help="auto|cuda|ref")
-    p.add_argument("--tree-chunk", type=int, default=None)
+    p.add_argument("--tree-chunk", type=int, default=None,
+                   help="trees per chunk of the plain version (CPU); "
+                        "no effect on the card, where a request is one "
+                        "launch")
     p.add_argument("--binned", action="store_true",
                    help="traverse on bin ids (binning timed per request)")
     p.add_argument("--output", default="margin",

@@ -5,9 +5,9 @@ a GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each kernel is held against its plain PyTorch version.  Traversal and
-split gain: ``torch.equal`` (pure selects; the same float32 operations in
-the same order).  Histograms: the kernel sums in fixed point, so it is
+Each kernel is held against its plain PyTorch version.  Traversal (both
+forms) and split gain: ``torch.equal`` (pure selects; the same float32
+operations in the same order).  Histograms: the kernel sums in fixed point, so it is
 ``torch.equal`` to ``ref.hist_levels_fixed`` (the same arithmetic in
 plain PyTorch) on every input and to itself from launch to launch;
 against the plain version ``torch.equal`` on integer-valued g/h, whose
@@ -21,6 +21,7 @@ bf16 before its product with V (the float32 plain version does not).
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -115,17 +116,108 @@ def test_traverse_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("binned", [False, True])
 def test_model_on_card_matches_cpu(cuda, binned):
     """Margins on the card equal the same model's on the CPU bit for bit,
-    through the kernel: one launch per chunk of trees."""
+    through the forest-sum kernel: one launch a request, whatever the
+    tree chunk, and no per-tree launch."""
     model = synthetic_gbdt(n_trees=60, max_depth=6, n_features=32,
                            n_candidates=32, seed=3, device=cuda)
     x = np.random.default_rng(1).normal(size=(777, 32)).astype(np.float32)
     x[::13, 4] = np.nan
-    before = traverse.launches
+    before = traverse.launches, traverse.forest_launches
     got = model.predict(x, output="margin", binned=binned, tree_chunk=25)
-    assert traverse.launches == before + 3
+    assert (traverse.launches, traverse.forest_launches) == (
+        before[0], before[1] + 1)
     want = model.to("cpu").predict(x, output="margin", binned=binned,
                                    tree_chunk=25)
     assert torch.equal(got.cpu(), want)
+
+
+def _forest(rng, *, n, T, depth, binned, f=32, out_of_range=False):
+    values, feature, cmp, leaf = _chunk(rng, n=n, C=T, depth=depth,
+                                        binned=binned, f=f)
+    if out_of_range:
+        feature[:, ::3] = rng.integers(f, f + 8, size=feature[:, ::3].shape)
+        feature[:, 1::4] = -3
+    return tuple(torch.from_numpy(a).to("cuda")
+                 for a in (values, feature, cmp, leaf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binned", [False, True])
+@pytest.mark.parametrize("depth", [0, 1, 6])
+def test_forest_sum_kernel_matches_plain_version(cuda, binned, depth):
+    """Bit for bit the plain version at tree counts on either side of a
+    chunk of 25, and at 500, with NaN rows, passthrough nodes and
+    out-of-range feature ids; one launch a call."""
+    rng = np.random.default_rng(20 + depth)
+    for n, T in [(1, 1), (33, 24), (4096, 25), (4095, 26), (4096, 500)]:
+        args = _forest(rng, n=n, T=T, depth=depth, binned=binned,
+                       out_of_range=T == 26)
+        before = traverse.forest_launches
+        got = traverse.forest_sum_cuda(*args, max_depth=depth)
+        want = ref.forest_sum_ref(*args, max_depth=depth)
+        torch.cuda.synchronize()
+        assert traverse.forest_launches == before + 1
+        assert got.shape == (n,) and torch.equal(got, want), (n, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binned", [False, True])
+def test_forest_sum_kernel_affine_deep_and_wide(cuda, binned):
+    """``base + scale * sum`` as two roundings; a depth-13 forest (one
+    tree a stage) and 600 features (values read from global memory), bit
+    for bit the plain version."""
+    rng = np.random.default_rng(30)
+    for kw, affine in [(dict(n=1000, T=40, depth=6), dict(base=0.25,
+                                                          scale=0.3)),
+                       (dict(n=300, T=5, depth=13, f=8), {}),
+                       (dict(n=500, T=70, depth=5, f=600),
+                        dict(base=-2.0, scale=0.05))]:
+        args = _forest(rng, binned=binned, **kw)
+        got = traverse.forest_sum_cuda(*args, max_depth=kw["depth"], **affine)
+        want = ref.forest_sum_ref(*args, max_depth=kw["depth"], **affine)
+        assert torch.equal(got, want), kw
+
+
+@pytest.mark.cuda
+def test_forest_sum_kernel_first_leaf_negative_zero(cuda):
+    """A one-tree forest of -0.0 leaves sums to +0.0: the accumulator
+    starts at +0.0 and adds the leaf, as the JAX engine does; and a
+    repeated launch gives the same bits."""
+    rng = np.random.default_rng(31)
+    values, feature, cmp, leaf = _forest(rng, n=100, T=1, depth=4,
+                                         binned=False)
+    leaf = torch.full_like(leaf, -0.0)
+    got = traverse.forest_sum_cuda(values, feature, cmp, leaf, max_depth=4)
+    assert torch.equal(got, torch.zeros_like(got))
+    assert not bool(torch.signbit(got).any())
+    args = _forest(rng, n=4096, T=500, depth=6, binned=False)
+    assert torch.equal(traverse.forest_sum_cuda(*args, max_depth=6),
+                       traverse.forest_sum_cuda(*args, max_depth=6))
+
+
+@pytest.mark.cuda
+def test_forest_sum_kernel_rejects_what_it_does_not_take(cuda):
+    values, feature, cmp, leaf = _forest(np.random.default_rng(0), n=8, T=2,
+                                         depth=2, binned=False)
+    before = traverse.forest_launches
+    with pytest.raises(TypeError):
+        traverse.forest_sum_cuda(values, feature, cmp.to(torch.int32), leaf,
+                                 max_depth=2)
+    with pytest.raises(ValueError):
+        traverse.forest_sum_cuda(values.T, feature, cmp, leaf, max_depth=2)
+    with pytest.raises(ValueError):
+        traverse.forest_sum_cuda(values, feature, cmp, leaf, max_depth=3)
+    deep = 2 ** (traverse.MAX_FOREST_DEPTH + 1)
+    with pytest.raises(ValueError, match="beyond the kernel"):
+        traverse.forest_sum_cuda(
+            values, torch.zeros((1, deep - 1), dtype=torch.int32, device=cuda),
+            torch.zeros((1, deep - 1), device=cuda),
+            torch.zeros((1, deep), device=cuda),
+            max_depth=traverse.MAX_FOREST_DEPTH + 1)
+    assert traverse.forest_launches == before
+    empty = traverse.forest_sum_cuda(values[:0], feature, cmp, leaf,
+                                     max_depth=2)
+    assert empty.shape == (0,) and traverse.forest_launches == before
 
 
 # -- training kernels --------------------------------------------------------
@@ -294,18 +386,32 @@ def test_hist_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nbins", [1, 2, 9, 17, 33, 65, 257, 300])
+@pytest.mark.parametrize("nbins", [1, 2, 9, 16, 17, 33, 65, 256, 257, 300,
+                                   1000])
 def test_split_gain_kernel_matches_plain_version(cuda, nbins):
-    """Bit for bit, empty bins, illegal nodes and NaN gains (l2 = 0,
-    min_child_weight = 0) included."""
+    """Bit for bit, empty bins, illegal nodes, NaN gains (l2 = 0,
+    min_child_weight = 0) and -inf legal gains (gamma = inf) included;
+    with 33 bins also on a panel of the histogram kernel at the timed
+    training shape (1M rows x 28 features, 32 nodes)."""
     rng = np.random.default_rng(nbins)
     h = rng.normal(size=(32, 28, nbins, 2)).astype(np.float32)
     h[..., 1] = np.abs(h[..., 1])
     h[rng.random(h.shape[:3]) < 0.3] = 0.0
     h[3] = 0.0
-    hist_t = torch.from_numpy(h).to(cuda)
-    for l2, gamma, mcw in [(1.0, 0.0, 1e-6), (1.0, 0.1, 1.0),
-                           (0.0, 0.0, 0.0), (0.5, 0.3, 0.5)]:
+    panels = [torch.from_numpy(h).to(cuda)]
+    if nbins == 33:
+        bins = torch.from_numpy(rng.integers(0, 33, size=(1_000_000, 28))
+                                .astype(np.int32)).to(cuda)
+        node = torch.from_numpy(rng.integers(0, 32, size=(1, 1_000_000))
+                                .astype(np.int32)).to(cuda)
+        gh = torch.from_numpy(rng.normal(size=(1_000_000, 2))
+                              .astype(np.float32)).to(cuda)
+        gh[:, 1].abs_()
+        panels.append(hist.hist_levels_cuda(bins, node, gh, n_nodes=32,
+                                            nbins=33)[0])
+    for (l2, gamma, mcw), hist_t in itertools.product(
+            [(1.0, 0.0, 1e-6), (1.0, 0.1, 1.0), (0.0, 0.0, 0.0),
+             (0.5, 0.3, 0.5), (1.0, float("inf"), 0.0)], panels):
         before = split_gain.launches
         g, i = split_gain.split_gain_cuda(hist_t, l2=l2, gamma=gamma,
                                           min_child_weight=mcw)
@@ -315,6 +421,25 @@ def test_split_gain_kernel_matches_plain_version(cuda, nbins):
         assert split_gain.launches == before + 1
         torch.testing.assert_close(g, gw, rtol=0, atol=0, equal_nan=True)
         assert torch.equal(i, iw)
+
+
+@pytest.mark.cuda
+def test_split_gain_kernel_bin_range(cuda):
+    """The widest row the kernel takes (its scan in one block's shared
+    memory) is bit for bit the plain version; one more bin raises."""
+    rng = np.random.default_rng(8)
+    top = split_gain.MAX_BINS
+    h = rng.normal(size=(2, 3, top, 2)).astype(np.float32)
+    h[..., 1] = np.abs(h[..., 1])
+    hist_t = torch.from_numpy(h).to(cuda)
+    g, i = split_gain.split_gain_cuda(hist_t)
+    gw, iw = ref.split_gain_ref(hist_t)
+    assert torch.equal(g, gw) and torch.equal(i, iw)
+    before = split_gain.launches
+    with pytest.raises(ValueError, match="bins"):
+        split_gain.split_gain_cuda(torch.zeros((1, 1, top + 1, 2),
+                                               device=cuda))
+    assert split_gain.launches == before
 
 
 @pytest.mark.cuda

@@ -6,6 +6,11 @@ where no split is legal and NaN gains (``l2 = 0`` with
 ``min_child_weight = 0``).  That needs the prefix sums in XLA:CPU's own
 association, which ``ref.blocked_prefix`` writes out: a blocked scan of
 16, recursively; ``torch.cumsum`` adds in another order.
+
+The card kernel spreads the work across bins without changing that
+association; its decomposition is emulated here in plain torch and held
+to the same bits (the kernel itself is held on the card by
+tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -16,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref as jref
+from repro.kernels.split_gain import split_gain_pallas
 from repro_torch.kernels import ops, ref, split_gain
 
 PARAMS = [(1.0, 0.0, 1e-6), (1.0, 0.0, 1.0), (0.5, 0.1, 1.0),
@@ -102,3 +108,106 @@ def test_kernel_wrapper_takes_no_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA tensor"):
         split_gain.split_gain_cuda(h)
     assert split_gain.launches == before
+
+
+# -- the card kernel's decomposition, in plain torch -------------------------
+
+def _kernel_prefix(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix along the last axis as ``csrc/split_gain.cu``
+    builds it: bottom up, every entry of a level is the sequential sum of
+    its block of 16 up to it, recomputed on its own; a level of more than
+    16 entries is followed by one of its block totals (the local prefix
+    at each block's last entry); top down, from the second block on an
+    entry adds the prefix one level up at the previous block."""
+    levels = [x]
+    locals_ = []
+    while True:
+        inp = levels[-1]
+        m = inp.shape[-1]
+        local = torch.empty_like(inp)
+        for i in range(m):
+            b0 = i - i % ref.PREFIX_BLOCK
+            v = inp[..., b0].clone()
+            for k in range(b0 + 1, i + 1):
+                v = v + inp[..., k]
+            local[..., i] = v
+        locals_.append(local)
+        if m <= ref.PREFIX_BLOCK:
+            break
+        last = [min(k * ref.PREFIX_BLOCK + ref.PREFIX_BLOCK - 1, m - 1)
+                for k in range(-(-m // ref.PREFIX_BLOCK))]
+        levels.append(local[..., last])
+    prefix = locals_[-1]
+    for local in reversed(locals_[:-1]):
+        out = local.clone()
+        for i in range(ref.PREFIX_BLOCK, local.shape[-1]):
+            out[..., i] = prefix[..., i // ref.PREFIX_BLOCK - 1] + local[..., i]
+        prefix = out
+    return prefix
+
+
+def _order_free_argmax(gain: torch.Tensor, rng) -> tuple:
+    """The kernel's (gain, bin) reduction, pairwise in a shuffled order:
+    a NaN beats everything, then the larger gain, then the smaller bin."""
+    g = gain.reshape(-1, gain.shape[-1])
+    perm = torch.from_numpy(rng.permutation(g.shape[-1]))
+    g, s = g[:, perm], perm.expand(g.shape[0], -1).clone()
+    while g.shape[-1] > 1:
+        if g.shape[-1] % 2:
+            g = torch.cat([g, g.new_full((g.shape[0], 1), float("-inf"))], 1)
+            s = torch.cat([s, s.new_full((s.shape[0], 1), 2 ** 31 - 1)], 1)
+        a, b, sa, sb = g[:, 0::2], g[:, 1::2], s[:, 0::2], s[:, 1::2]
+        na, nb = torch.isnan(a), torch.isnan(b)
+        take_a = torch.where(na | nb, na & (~nb | (sa < sb)),
+                             (a > b) | ((a == b) & (sa < sb)))
+        g, s = torch.where(take_a, a, b), torch.where(take_a, sa, sb)
+    return (g[:, 0].reshape(gain.shape[:-1]),
+            s[:, 0].to(torch.int32).reshape(gain.shape[:-1]))
+
+
+def _kernel_emulation(hist, *, l2, gamma, min_child_weight, rng):
+    g, h = hist[..., 0], hist[..., 1]
+    gl, hl = _kernel_prefix(g), _kernel_prefix(h)
+    gt, ht = gl[..., -1:], hl[..., -1:]
+    gain = 0.5 * (ref._score(gl, hl, l2) + ref._score(gt - gl, ht - hl, l2)
+                  - ref._score(gt, ht, l2)) - gamma
+    nbins = gain.shape[-1]
+    ok = (hl >= min_child_weight) & (ht - hl >= min_child_weight) \
+        & (torch.arange(nbins) < nbins - 1)
+    return _order_free_argmax(torch.where(ok, gain, float("-inf")), rng)
+
+
+CASES = {  # name: (l2, gamma, min_child_weight)
+    "plain": (1.0, 0.0, 1e-6),
+    "nan_gains": (0.0, 0.0, 0.0),
+    "all_illegal": (1.0, 0.0, 1e9),
+    "neg_inf_legal": (1.0, float("inf"), 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("nbins", [1, 2, 9, 16, 17, 33, 256, 257, 300])
+def test_kernel_decomposition_bit_equal(nbins, case):
+    """The card kernel's association (per-bin recomputed blocked prefix,
+    then the order-free (gain, bin) reduction in a shuffled order) equals
+    the plain version and the JAX Pallas kernel (interpret mode) bit for
+    bit; rows of equal gains (runs of empty bins) are ties, which the
+    smaller bin wins."""
+    l2, gamma, mcw = CASES[case]
+    rng = np.random.default_rng(1000 + nbins)
+    h = _hist(rng, 4, 3, nbins)
+    h[2, 0, : nbins // 2] = 0.0          # a run of equal prefixes: ties
+    th = torch.from_numpy(h)
+    eg, ei = _kernel_emulation(th, l2=l2, gamma=gamma, min_child_weight=mcw,
+                               rng=rng)
+    rg, ri = ref.split_gain_ref(th, l2=l2, gamma=gamma, min_child_weight=mcw)
+    pg, pi = split_gain_pallas(jnp.asarray(h), l2=l2, gamma=gamma,
+                               min_child_weight=mcw, interpret=True)
+    for gains, idx in ((rg.numpy(), ri.numpy()),
+                       (np.asarray(pg), np.asarray(pi))):
+        assert np.array_equal(eg.numpy(), gains, equal_nan=True)
+        assert np.array_equal(ei.numpy(), idx)
+    if case in ("all_illegal", "neg_inf_legal"):
+        assert np.isneginf(eg.numpy()).all() and (ei.numpy() == 0).all()
+    if case == "nan_gains" and nbins > 2:
+        assert np.isnan(eg.numpy()).any()

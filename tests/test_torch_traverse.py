@@ -7,8 +7,14 @@ the plain PyTorch version.  Per-tree leaf values are pure selects, so
 the contract is bit-identity (``np.array_equal``), NaN rows included: a
 one-ulp difference is a bug, never a tolerance.
 
-The CUDA kernel itself is held against the plain version on the card by
-tests/test_torch_cuda.py.
+The forest-sum form (``ops.forest_sum``; on the CPU ``ref.forest_sum_ref``)
+is held the same way against the JAX engine's whole ensemble sum,
+``repro.core.predict._forest_sum``: the same float32 adds in tree order,
+bit for bit, at tree counts on either side of the JAX chunk of 25 (the
+JAX engine pads with zero trees, the port does not).
+
+The CUDA kernels themselves are held against the plain versions on the
+card by tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -17,10 +23,12 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.core import predict as jpredict
 from repro.kernels import ref as jref
+from repro.kernels.ops import TraverseSpec as JTraverseSpec
 from repro.kernels.traverse import traverse_chunk_pallas
 from repro.launch.serve_gbdt import synthetic_gbdt
-from repro_torch.kernels import ops, traverse
+from repro_torch.kernels import ops, ref, traverse
 
 # the pinned fixture of tests/test_predict_engine.py
 N_TREES, DEPTH, F, K = 13, 4, 6, 8
@@ -183,3 +191,89 @@ def test_cuda_backend_on_cpu_tensor_raises(x_nan, jmodel):
             *(torch.from_numpy(np.ascontiguousarray(a))
               for a in (x_nan, feat, cmp, leaf)), max_depth=DEPTH)
     assert traverse.launches == before
+
+
+# -- the forest-sum form -------------------------------------------------------
+
+def _jax_forest_sum(forest, values, backend, binned):
+    spec = JTraverseSpec(tree_chunk=25, binned=binned, backend=backend)
+    n = values.shape[0]
+    return np.asarray(jpredict._forest_sum(
+        forest, jnp.asarray(values), jnp.zeros((n,), jnp.float32),
+        max_depth=DEPTH, spec=spec.resolved()))
+
+
+def _torch_forest(forest, binned):
+    fo = [torch.from_numpy(np.array(getattr(forest, k))) for k in
+          ("feature", "split_bin" if binned else "threshold", "leaf_value")]
+    return fo
+
+
+@pytest.mark.parametrize("jax_backend", ["ref", "interpret"])
+@pytest.mark.parametrize("binned", [False, True])
+@pytest.mark.parametrize("n_trees", [1, 24, 25, 26, 500])
+def test_forest_sum_equals_jax_engine(x_nan, jax_backend, binned, n_trees):
+    """The plain forest sum, at the JAX chunk (25) and another (7), equals
+    the JAX engine's chunk-scanned sum bit for bit, raw with NaN rows and
+    binned; ``ops.forest_sum`` on CPU tensors is that plain version."""
+    jm = synthetic_gbdt(n_trees=n_trees, max_depth=DEPTH, n_features=F,
+                        n_candidates=K, seed=n_trees, passthrough_frac=0.25)
+    values = (np.asarray(jm.bin_features(jnp.asarray(x_nan)), np.int32)
+              if binned else x_nan)
+    want = _jax_forest_sum(jm.forest, values, jax_backend, binned)
+    feature, cmp, leaf = _torch_forest(jm.forest, binned)
+    v = torch.from_numpy(np.ascontiguousarray(values))
+    for chunk in (25, 7):
+        got = ref.forest_sum_ref(v, feature, cmp, leaf, max_depth=DEPTH,
+                                 tree_chunk=chunk)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert np.array_equal(got.numpy(), want), (chunk, n_trees)
+    spec = ops.TraverseSpec(tree_chunk=9, binned=binned)
+    assert np.array_equal(ops.forest_sum(v, feature, cmp, leaf, spec,
+                                         max_depth=DEPTH).numpy(), want)
+
+
+@pytest.mark.parametrize("n_trees", [1, 26])
+def test_forest_sum_first_leaf_negative_zero(x_nan, n_trees):
+    """Every leaf of the first tree is -0.0: the sum starts at +0.0 and
+    adds it, as the JAX engine does, so a one-tree forest sums to +0.0
+    (sign bit clear), never to the leaf itself."""
+    jm = synthetic_gbdt(n_trees=n_trees, max_depth=DEPTH, n_features=F,
+                        n_candidates=K, seed=3, passthrough_frac=0.25)
+    leaf = np.array(jm.forest.leaf_value)
+    leaf[0] = -0.0
+    if n_trees > 1:
+        leaf[1:4] = -0.0
+    forest = jm.forest._replace(leaf_value=jnp.asarray(leaf))
+    want = _jax_forest_sum(forest, x_nan, "ref", False)
+    feature, cmp, leaf_t = _torch_forest(forest, False)
+    got = ref.forest_sum_ref(torch.from_numpy(x_nan), feature, cmp, leaf_t,
+                             max_depth=DEPTH).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    if n_trees == 1:
+        assert not np.signbit(got).any()
+
+
+def test_forest_sum_affine_is_two_roundings(x_nan):
+    """``base + scale * sum`` as two float32 operations, what the JAX
+    engine's ``margin`` does outside its jit."""
+    jm = synthetic_gbdt(n_trees=30, max_depth=DEPTH, n_features=F,
+                        n_candidates=K, seed=5, passthrough_frac=0.25)
+    total = _jax_forest_sum(jm.forest, x_nan, "ref", False)
+    want = np.float32(0.25) + np.float32(0.3) * total
+    feature, cmp, leaf = _torch_forest(jm.forest, False)
+    got = ref.forest_sum_ref(torch.from_numpy(x_nan), feature, cmp, leaf,
+                             max_depth=DEPTH, base=0.25, scale=0.3)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_forest_sum_takes_no_cpu_tensor(x_nan, jmodel):
+    feature, cmp, leaf = _torch_forest(jmodel.forest, False)
+    before = traverse.forest_launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        traverse.forest_sum_cuda(torch.from_numpy(x_nan), feature, cmp, leaf,
+                                 max_depth=DEPTH)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.forest_sum(torch.from_numpy(x_nan), feature, cmp, leaf,
+                       ops.TraverseSpec(backend="cuda"), max_depth=DEPTH)
+    assert traverse.forest_launches == before
