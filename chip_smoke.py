@@ -76,7 +76,40 @@ Phases, each printing one JSON line:
    the card and on the CPU, the share of equal split features and, at
    each tree's first differing node, the gap between the two choices'
    gains on the CPU's histogram;
-8. attn_check -- the flash-attention kernels held against their plain
+8. propose_check -- the device strategies' grids on the card against the
+   CPU port's, bit for bit (``weighted_quantile`` and ``uniform_range``,
+   compared as int32 bit patterns, any NaN equal to any NaN): at the
+   training cell (1M x 28, k =
+   32) with the hessian after one logistic round, and on a 50 000 x 4 set
+   with heavy ties, -0.0, NaN of either sign and zero weights (k = 32 and
+   255); the card's raw stable sort against the CPU's on that set (the
+   signed-zero question) and ``sketch.stable_order`` equal on both;
+9. propose_time -- each strategy's proposal alone: random,
+   weighted_quantile and uniform_range at 1M x 28 with CUDA events beside
+   the launch floor; gk_quantile at 100 000 x 4 and exact at 100 000 x 28
+   on the host clock (``bench_proposal_time.py``'s cuts), beside random
+   on the card at the same cuts; T(Q)/T(S) (Table 2's T column); a
+   weighted-quantile proposal's device time by op;
+10. table2 -- a fit per strategy (20 trees, depth 6, k = 32, direct):
+   random, weighted_quantile and uniform_range at the training cell,
+   random, gk_quantile and exact at 100 000 rows (the host strategies'
+   cut); counts reset just before each fit and read just after (max_depth
+   histogram and split-gain launches a tree); fit seconds, proposal
+   seconds (the device strategies' from ``fit_reference``, whose forest
+   must equal ``fit``'s), holdout accuracy and logloss;
+   train_repeat for weighted_quantile; a weighted-quantile round's device
+   time by kernel and by op; the accuracy gap of random against
+   weighted_quantile;
+11. telemetry -- fits at the training cell with telemetry off, on, on,
+   off: the forest with it equal to the forest without it, both fit
+   times, ``report.summarize()``, histogram updates direct against
+   subtract;
+12. rank_error -- ``rank_error.fig2_experiment(seed=0, n=1024, ks=[4, 16,
+   64], trials=16)`` on the card (twice; the first is cold), within
+   tests/test_rank_error.py's bounds of Theorem 1 (rel 0.5 random, 0.6
+   quantile);
+13. quickstart -- ``launch/quickstart.py`` on the card;
+14. attn_check -- the flash-attention kernels held against their plain
    version (``ref.attention_ref``) on the card: MHA, GQA and MQA; causal,
    window 128, window 200 (not a tile multiple) and none; head dims 32,
    64, 80, 128; 128 and 384 tokens, and 2048 (16 K/V tiles); ragged
@@ -89,19 +122,19 @@ Phases, each printing one JSON line:
    ``ref.attention_rounding_bound`` (the Hopper kernel rounds P to bf16
    before its product with V); and the prefill's own shape, q (2, 32,
    4096, 128), k/v (2, 2, 4096, 128), causal, bf16;
-9. attn_time -- the kernel at that shape with CUDA events, beside the
+15. attn_time -- the kernel at that shape with CUDA events, beside the
    plain version, ``F.scaled_dot_product_attention`` (the library
    yardstick, never called by the port) and the bound; its TFLOP/s and
    its share of the bound;
-10. prefill -- glm4-9b at full width and depth (40 layers, random bf16
+16. prefill -- glm4-9b at full width and depth (40 layers, random bf16
    weights from a seeded generator on the card) through
    ``make_prefill_step``: one warm-up request, then 4 requests of 2 x
    4096 tokens; p50 ms, tokens/s, peak memory, 40 flash launches a
    request, all of the Hopper kernel (counts reset just before, read
    just after), the greedy next token;
-11. prefill_profile -- one request's device time by kernel (flash,
+17. prefill_profile -- one request's device time by kernel (flash,
    GEMMs, the rest) and the device's idle share;
-12. prefill_check -- glm4-9b at full width with 2 layers, 1 x 256 tokens,
+18. prefill_check -- glm4-9b at full width with 2 layers, 1 x 256 tokens,
    ``attn_impl="pallas"``, the card against the port on the CPU with the
    same weights.  With float32 activations (the same modules, no bf16
    rounding between them) the logits agree within 2e-4 abs and rel.  The
@@ -114,11 +147,13 @@ Phases, each printing one JSON line:
    on the CUDA-core kernel; and a ragged case, 1 x 1000 tokens through
    ``xla_chunked`` (blockwise, padded on the card), float32 activations,
    card against CPU within 2e-4 abs and rel;
-13. kernels -- one line listing every ported kernel with its launches,
+19. kernels -- one line listing every ported kernel with its launches,
    error, times, bound, launch floor and ``deterministic`` flag (and for
-   flash attention the variant and its SASS counts).  The per-tree
-   traversal is on no path any more (``launches`` 0, ``on_main_path``
-   false): it is listed as the counterpart of ``ops.traverse_chunk``.
+   flash attention the variant and its SASS counts; for the histogram and
+   split gain also their launches on each path of phases 10 and 11).  The
+   per-tree traversal is on no path any more (``launches`` 0,
+   ``on_main_path`` false): it is listed as the counterpart of
+   ``ops.traverse_chunk``.
 
 The new phases print their seconds.  Precision: float32 matrix products
 in full float32 (``allow_tf32`` off) and bf16 products reduced in float32
@@ -154,6 +189,12 @@ TRAIN_ROWS, HOLDOUT_ROWS, TRAIN_FEATURES = 1_000_000, 100_000, 28
 TRAIN_TREES, TRAIN_DEPTH, TRAIN_CANDIDATES = 20, 6, 32
 TRAIN_NODES = 2 ** (TRAIN_DEPTH - 1)          # frontier width
 TRAIN_BINS = TRAIN_CANDIDATES + 1
+
+# the proposal strategies: the ties set of propose_check, and the cut of
+# the host strategies (pure-Python numpy; bench_proposal_time.py's cuts)
+TIES_ROWS, TIES_FEATURES = 50_000, 4
+HOST_ROWS, GK_FEATURES = 100_000, 4
+FIG2 = dict(n=1024, ks=[4, 16, 64], trials=16)     # the quickstart's
 
 # prefill: glm4-9b; the dry-run's prefill_32k shape (32 x 32768) cut to
 # 2 x 4096, since its bf16 logits alone would be 318 GB
@@ -505,6 +546,45 @@ def first_difference(card, model, t, x, y) -> dict:
     return out
 
 
+def ties_case(n, f, seed):
+    """Half-integer values (heavy ties), 5 % -0.0 and 5 % +0.0, 1 % NaN and
+    1 % NaN with its sign bit set; uniform weights with 1 % zeros."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-6, 7, size=(n, f)) * 0.5).astype(np.float32)
+    z = rng.random((n, f))
+    x[z < 0.05] = -0.0
+    x[(z >= 0.05) & (z < 0.1)] = 0.0
+    nan = rng.random((n, f))
+    x[nan < 0.01] = np.nan
+    x[(nan >= 0.01) & (nan < 0.02)] = -np.float32(np.nan)
+    h = rng.random(n).astype(np.float32)
+    h[rng.random(n) < 0.01] = 0.0
+    return x, h
+
+
+def sort_stats(rows: torch.Tensor) -> dict:
+    """Of sorted rows: those whose first value is NaN, and those whose
+    zeros come as all -0.0 then all +0.0 (a stable sort that takes the two
+    as equal keeps their input order instead)."""
+    nan_first = grouped = 0
+    for r in rows:
+        nan_first += bool(torch.isnan(r[0]))
+        sign = torch.signbit(r[r == 0]).to(torch.int8)
+        grouped += bool((torch.diff(sign) <= 0).all())
+    return {"rows_nan_first": nan_first,
+            "rows_zeros_grouped_by_sign": grouped}
+
+
+def grid_differences(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Entries of two candidate grids that differ in their bits (so in the
+    sign of a zero too), where not both NaN: IEEE leaves the sign and
+    payload of a NaN that an operation returns open, and the card's
+    column minimum returns another NaN than the CPU's."""
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    return int(((a.view(torch.int32) != b.view(torch.int32)) & ~both_nan)
+               .sum())
+
+
 def logloss(margin, y) -> float:
     return float(torch.nn.functional.binary_cross_entropy_with_logits(
         margin, y))
@@ -516,15 +596,16 @@ def main() -> int:
               "needs a GPU", file=sys.stderr)
         return 1
 
-    from repro_torch import GBDTConfig, accuracy, fit
+    from repro_torch import GBDTConfig, accuracy, fit, fit_reference
     from repro_torch.core.boosting import leaf_rounding
     from repro_torch.configs import get_config
-    from repro_torch.core import proposal, tree as tree_lib
+    from repro_torch.core import boosting, proposal, rank_error, sketch, \
+        tree as tree_lib
     from repro_torch.data import tabular
     from repro_torch.kernels import _build, hist, ops, ref, split_gain, \
         traverse
     from repro_torch.kernels import flash_attention as flash
-    from repro_torch.launch import serve_gbdt
+    from repro_torch.launch import quickstart, serve_gbdt
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import init_params
 
@@ -1151,7 +1232,299 @@ def main() -> int:
                                     .abs().max()),
              seconds=time.perf_counter() - t_phase)
 
-    # 8. attn_check -------------------------------------------------------
+    # 8. propose_check ------------------------------------------------------
+    # the card's weighted_quantile and uniform_range grids against the CPU
+    # port's, bit for bit: at the training cell with the hessian after one
+    # logistic round, and on a ties set with -0.0, NaN and zero weights
+    t_phase = time.perf_counter()
+    one = fit(x_tr, y_tr, GBDTConfig(n_trees=1, max_depth=TRAIN_DEPTH,
+                                     n_candidates=TRAIN_CANDIDATES),
+              torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    _, h1 = boosting.grad_hess(one.predict(x_tr, output="margin"), y_tr,
+                               "logistic")
+    x_ties, h_ties = (torch.from_numpy(a).cuda() for a in ties_case(
+        TIES_ROWS, TIES_FEATURES, seed=0))
+    prop_cases = {"training_cell": (x_tr, h1, (TRAIN_CANDIDATES,)),
+                  "ties": (x_ties, h_ties, (TRAIN_CANDIDATES, 255))}
+    prop_equal = {}
+    for name, (xg, hg, ks) in prop_cases.items():
+        xc, hc = xg.cpu(), hg.cpu()
+        for k in ks:
+            for strategy in ("weighted_quantile", "uniform_range"):
+                card = proposal.propose(strategy, xg, k, hess=hg)
+                cpu = proposal.propose(strategy, xc, k, hess=hc)
+                differ = grid_differences(card.cpu(), cpu)
+                check(card.device.type == "cuda" and differ == 0,
+                      f"propose_check: {strategy} k={k} on {name}: {differ} "
+                      "of the card's candidates differ from the CPU port's")
+                prop_equal[f"{name}/{strategy}/k={k}"] = True
+    # the signed-zero question: the card's stable sort of the raw values
+    # against the CPU's, with every NaN made the positive NaN (so only the
+    # zeros can order apart) and as they are; and the port's order
+    # (``sketch.stable_order``) on both
+    cols = x_ties.T
+    raw_differ = {}
+    for name, keys in (("nan_positive", torch.where(
+            torch.isnan(cols), float("nan"), cols)), ("as_is", cols)):
+        raw_card = torch.sort(keys, dim=1, stable=True)
+        raw_cpu = torch.sort(keys.cpu(), dim=1, stable=True)
+        raw_differ[name] = {
+            "positions": int((raw_card.indices.cpu() != raw_cpu.indices)
+                             .sum()),
+            "card": sort_stats(raw_card.values.cpu()),
+            "cpu": sort_stats(raw_cpu.values)}
+    order_equal = torch.equal(sketch.stable_order(cols).cpu(),
+                              sketch.stable_order(cols.cpu()))
+    check(order_equal, "propose_check: sketch.stable_order differs between "
+          "the card and the CPU")
+    emit("propose_check", rows=TRAIN_ROWS, features=TRAIN_FEATURES,
+         hessian="logistic, after one round", ties_rows=TIES_ROWS,
+         ties_features=TIES_FEATURES, equal_bits=prop_equal,
+         raw_stable_sort_card_vs_cpu=raw_differ,
+         stable_order_equal_cpu=order_equal,
+         seconds=time.perf_counter() - t_phase)
+    del x_ties, h_ties, cols
+
+    # 9. propose_time -------------------------------------------------------
+    # each strategy's proposal alone: the device ones with CUDA events at
+    # the training cell, the host ones on the host clock at
+    # bench_proposal_time.py's cuts (and random on the card at the same)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k = TRAIN_CANDIDATES
+    prop_ms = {
+        "random": cuda_ms(lambda: proposal.random_candidates(gen, x_tr, k),
+                          iters=200)[0],
+        "weighted_quantile": cuda_ms(
+            lambda: proposal.weighted_quantile_candidates(x_tr, h1, k),
+            iters=20, warmup=3)[0],
+        "uniform_range": cuda_ms(
+            lambda: proposal.uniform_range_candidates(x_tr, k), iters=100)[0],
+    }
+    host_ms, random_at_cut_ms = {}, {}
+    x_host = x[:HOST_ROWS]
+    for strategy, f_cut in (("gk_quantile", GK_FEATURES),
+                            ("exact", TRAIN_FEATURES)):
+        fn = getattr(proposal, f"{strategy}_candidates")
+        t0 = time.perf_counter()
+        fn(x_host[:, :f_cut], k)
+        host_ms[strategy] = (time.perf_counter() - t0) * 1e3
+        xs = x_tr[:HOST_ROWS, :f_cut]
+        random_at_cut_ms[strategy] = cuda_ms(
+            lambda: proposal.random_candidates(gen, xs, k), iters=200)[0]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            proposal.weighted_quantile_candidates(x_tr, h1, k)
+        torch.cuda.synchronize()
+    emit("propose_time", rows=TRAIN_ROWS, features=TRAIN_FEATURES,
+         n_candidates=k, device_ms=prop_ms, floor_ms=floor_ms,
+         t_q_over_t_s=prop_ms["weighted_quantile"] / prop_ms["random"],
+         t_uniform_over_t_s=prop_ms["uniform_range"] / prop_ms["random"],
+         host_ms=host_ms,
+         host_cuts={"gk_quantile": [HOST_ROWS, GK_FEATURES],
+                    "exact": [HOST_ROWS, TRAIN_FEATURES]},
+         random_device_ms_at_host_cuts=random_at_cut_ms,
+         t_host_over_t_s={s: host_ms[s] / random_at_cut_ms[s]
+                          for s in host_ms},
+         weighted_quantile_by_op=by_kernel(prof, 3, "call", ops=True)[:10],
+         weighted_quantile_by_kernel=by_kernel(prof, 3, "call")[:8],
+         seconds=time.perf_counter() - t_phase)
+
+    # 10. table2 ------------------------------------------------------------
+    # the paper's comparison at the training cell: a fit per strategy,
+    # through the same kernels; the host strategies at HOST_ROWS rows
+    t_phase = time.perf_counter()
+    path_launches = {}
+    table = {}
+
+    def fit_checked(strategy, xf, yf, path, fitter=fit, **kw):
+        """A fit at ``xf``: the counts reset just before it and read just
+        after, max_depth histogram and split-gain launches a tree."""
+        cfg = GBDTConfig(n_trees=TRAIN_TREES, max_depth=TRAIN_DEPTH,
+                         n_candidates=TRAIN_CANDIDATES, strategy=strategy,
+                         **kw)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        model = fitter(xf, yf, cfg, torch.Generator(device="cuda")
+                       .manual_seed(0), device="cuda")
+        wall = time.perf_counter() - t0
+        n_hist, n_left, n_gain, n_trav, n_forest, n_flash = read()
+        per_fit = TRAIN_TREES * TRAIN_DEPTH
+        n_mode, n_other = ((n_left, n_hist) if cfg.subtract
+                           else (n_hist, n_left))
+        check(n_mode == per_fit and n_gain == per_fit
+              and n_other + n_trav + n_forest + n_flash == 0,
+              f"{path}: launches hist {n_hist}, hist_left {n_left}, "
+              f"split_gain {n_gain}, traverse {n_trav + n_forest}, flash "
+              f"{n_flash}; want {per_fit} of the fit's histogram mode and "
+              f"{per_fit} split-gain launches")
+        path_launches[path] = {
+            "hist_levels_left" if cfg.subtract else "hist_levels": n_mode,
+            "split_gain": n_gain}
+        return model, wall
+
+    def holdout(model):
+        traverse.forest_launches = 0
+        acc = accuracy(model, x_ho, y_ho)
+        check(traverse.forest_launches == 1, "holdout predict made "
+              f"{traverse.forest_launches} forest-sum launches, want 1")
+        return acc, logloss(model.predict(x_ho, output="margin"), y_ho)
+
+    for strategy, rows in (("random", TRAIN_ROWS),
+                           ("weighted_quantile", TRAIN_ROWS),
+                           ("uniform_range", TRAIN_ROWS),
+                           ("random", HOST_ROWS), ("gk_quantile", HOST_ROWS),
+                           ("exact", HOST_ROWS)):
+        xf, yf = x_tr[:rows], y_tr[:rows]
+        path = f"table2/{strategy}/{rows}"
+        traceable = strategy in proposal.TRACEABLE
+        if rows == TRAIN_ROWS:     # warm-up: the strategy's first launches
+            fit(xf, yf, GBDTConfig(n_trees=1, max_depth=TRAIN_DEPTH,
+                                   n_candidates=TRAIN_CANDIDATES,
+                                   strategy=strategy),
+                torch.Generator(device="cuda").manual_seed(1), device="cuda")
+        model, wall = fit_checked(strategy, xf, yf, path)
+        acc, ho_loss = holdout(model)
+        check(acc > 0.6 and np.isfinite(ho_loss),
+              f"{path}: holdout accuracy {acc}, logloss {ho_loss}")
+        row = dict(strategy=strategy, rows=rows, fit_seconds=wall,
+                   model_fit_seconds=model.fit_seconds,
+                   proposal_seconds=model.proposal_seconds,
+                   candidates_shape=list(model.candidates.shape),
+                   launches=path_launches[path], holdout_accuracy=acc,
+                   holdout_logloss=ho_loss)
+        if traceable:
+            # fit_reference times every proposal, the card synchronised
+            # around each; it must give fit's forest
+            ref_model, ref_wall = fit_checked(strategy, xf, yf,
+                                              path + "/reference",
+                                              fitter=fit_reference)
+            equal = all(torch.equal(a, b) for a, b in zip(model.forest,
+                                                          ref_model.forest))
+            check(equal, f"{path}: fit_reference's forest differs from "
+                  "fit's")
+            row.update(proposal_seconds=ref_model.proposal_seconds,
+                       proposal_seconds_from="fit_reference",
+                       reference_fit_seconds=ref_wall,
+                       reference_forest_equal=equal)
+        if strategy == "weighted_quantile":
+            again = fit(xf, yf, model.config, torch.Generator(
+                device="cuda").manual_seed(0), device="cuda").forest
+            equal_fields = {name: torch.equal(a, b) for name, a, b in
+                            zip(model.forest._fields, model.forest, again)}
+            check(all(equal_fields.values()), f"{path}: two fits from one "
+                  f"seed differ on the card: {equal_fields}")
+            emit("train_repeat", strategy=strategy, subtract=False,
+                 rows=rows, n_trees=TRAIN_TREES, max_depth=TRAIN_DEPTH,
+                 fields_equal=equal_fields)
+            del again
+        table[path] = row
+        emit("table2", reduced=["rows: 11M -> 1M"] if rows == TRAIN_ROWS
+             else [f"rows: 11M -> {rows} (a host strategy's proposal is "
+                   "pure-Python numpy)"], **row)
+        del model
+    # where a weighted-quantile round's device time goes
+    cfg = GBDTConfig(n_trees=2, max_depth=TRAIN_DEPTH,
+                     n_candidates=TRAIN_CANDIDATES,
+                     strategy="weighted_quantile")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fit(x_tr, y_tr, cfg, device="cuda")
+    rows = by_kernel(prof, cfg.n_trees, "round")
+    t0 = time.perf_counter()
+    fit(x_tr, y_tr, cfg, device="cuda")
+    wall_ms = (time.perf_counter() - t0) / cfg.n_trees * 1e3
+    busy_ms = sum(r["device_us_per_round"] for r in rows) / 1e3
+    emit("train_profile", rounds=cfg.n_trees, strategy=cfg.strategy,
+         subtract=False, wall_ms_per_round=wall_ms,
+         device_ms_per_round=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+         by_kernel=rows[:10],
+         by_op=by_kernel(prof, cfg.n_trees, "round", ops=True)[:14])
+    s_row = table[f"table2/random/{TRAIN_ROWS}"]
+    q_row = table[f"table2/weighted_quantile/{TRAIN_ROWS}"]
+    emit("table2_summary", rows=TRAIN_ROWS,
+         accuracy={p[len("table2/"):]: r["holdout_accuracy"]
+                   for p, r in table.items()},
+         accuracy_gap_random_vs_weighted_quantile=abs(
+             s_row["holdout_accuracy"] - q_row["holdout_accuracy"]),
+         fit_seconds_random=s_row["fit_seconds"],
+         fit_seconds_weighted_quantile=q_row["fit_seconds"],
+         proposal_seconds_random=s_row["proposal_seconds"],
+         proposal_seconds_weighted_quantile=q_row["proposal_seconds"],
+         t_q_over_t_s_device=prop_ms["weighted_quantile"] / prop_ms["random"],
+         seconds=time.perf_counter() - t_phase)
+
+    # 11. telemetry ---------------------------------------------------------
+    # a fit with telemetry gives the plain fit's forest; fits timed in
+    # turns (off, on, on, off)
+    t_phase = time.perf_counter()
+    walls = {False: [], True: []}
+    models = {}
+    for on in (False, True, True, False):
+        model, wall = fit_checked("random", x_tr, y_tr,
+                                  f"telemetry/{'on' if on else 'off'}",
+                                  telemetry=on)
+        walls[on].append(wall)
+        models[on] = model
+    equal = all(torch.equal(a, b) for a, b in zip(models[False].forest,
+                                                  models[True].forest))
+    check(equal, "telemetry: the forest with telemetry differs from the "
+          "forest without it")
+    report = models[True].report
+    check(report is not None and report.n_rounds == TRAIN_TREES
+          and report.train_loss.device.type == "cuda"
+          and bool(torch.isfinite(report.train_loss).all()),
+          "telemetry: no report of TRAIN_TREES finite rounds on the card")
+    sub, _ = fit_checked("random", x_tr, y_tr, "telemetry/subtract",
+                         telemetry=True, subtract=True)
+    updates = {"direct": float(report.hist_updates.double().sum()),
+               "subtract": float(sub.report.hist_updates.double().sum())}
+    check(updates["subtract"] < updates["direct"]
+          == TRAIN_TREES * TRAIN_DEPTH * TRAIN_ROWS * TRAIN_FEATURES,
+          f"telemetry: histogram updates {updates}; want n f depth a tree "
+          "direct, fewer subtract")
+    emit("telemetry", rows=TRAIN_ROWS, forest_equal=equal,
+         fit_seconds_off=walls[False], fit_seconds_on=walls[True],
+         summary=report.summarize(), hist_updates=updates,
+         hist_updates_subtract_over_direct=updates["subtract"]
+         / updates["direct"], seconds=time.perf_counter() - t_phase)
+    del models, sub, report
+
+    # 12. rank_error --------------------------------------------------------
+    # Fig. 2 on the card (the quickstart's sizes), against Theorem 1 within
+    # tests/test_rank_error.py's bounds; run twice (the first is cold)
+    fig2_seconds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fig2 = rank_error.fig2_experiment(seed=0, **FIG2, device="cuda")
+        fig2_seconds.append(time.perf_counter() - t0)
+    rel = {name: [v / t - 1 for v, t in zip(fig2[name], fig2["theory"])]
+           for name in ("random", "quantile")}
+    check(all(abs(r) <= 0.5 for r in rel["random"])
+          and all(abs(q) <= 0.6 for q in rel["quantile"]),
+          f"rank_error: Fig. 2 outside Theorem 1's bounds (rel 0.5 random, "
+          f"0.6 quantile): {fig2}")
+    emit("rank_error", **FIG2, seed=0, **fig2, rel_to_theory=rel,
+         bounds={"random": 0.5, "quantile": 0.6}, seconds=fig2_seconds)
+
+    # 13. quickstart --------------------------------------------------------
+    t0 = time.perf_counter()
+    qs = quickstart.main(["--device", "cuda"])
+    qs_acc = {s: r["acc"] for s, r in qs["table2"].items()}
+    check(all(a > 0.6 for a in qs_acc.values()),
+          f"quickstart: holdout accuracy {qs_acc}")
+    emit("quickstart", device=qs["device"], accuracy=qs_acc,
+         fit_seconds={s: r["fit_s"] for s, r in qs["table2"].items()},
+         accuracy_gap=abs(qs_acc["random"] - qs_acc["weighted_quantile"]),
+         report=qs["report"], fig2=qs["fig2"],
+         seconds=time.perf_counter() - t0)
+
+    # 14. attn_check -------------------------------------------------------
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(2)
 
@@ -1241,7 +1614,7 @@ def main() -> int:
                  "no_mask_raises": ragged_refusal},
          seconds=time.perf_counter() - t_phase)
 
-    # 9. attn_time --------------------------------------------------------
+    # 15. attn_time --------------------------------------------------------
     t_phase = time.perf_counter()
     ms, issue_ms = cuda_ms(lambda: flash.flash_attention_cuda(
         q, k, v, causal=True), iters=10, warmup=2)
@@ -1264,7 +1637,7 @@ def main() -> int:
     del q, k, v
     torch.cuda.empty_cache()
 
-    # 10. prefill ---------------------------------------------------------
+    # 16. prefill ---------------------------------------------------------
     t_phase = time.perf_counter()
     model = init_params(lm_cfg, generator=torch.Generator(
         device="cuda").manual_seed(0), device="cuda")
@@ -1321,7 +1694,7 @@ def main() -> int:
          next_tokens=next_tokens,
          seconds=time.perf_counter() - t_phase)
 
-    # 11. prefill_profile ---------------------------------------------------
+    # 17. prefill_profile ---------------------------------------------------
     t_phase = time.perf_counter()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -1347,7 +1720,7 @@ def main() -> int:
     del model, prof
     torch.cuda.empty_cache()
 
-    # 12. prefill_check ---------------------------------------------------
+    # 18. prefill_check ---------------------------------------------------
     t_phase = time.perf_counter()
     check_cfg = dataclasses.replace(lm_cfg, n_layers=2, attn_impl="pallas")
     model = init_params(check_cfg, generator=torch.Generator(
@@ -1440,7 +1813,7 @@ def main() -> int:
          cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_phase)
     del model, card, on_cpu, card_f32, cpu_f32, card_ragged, cpu_ragged
 
-    # 13. kernels ---------------------------------------------------------
+    # 19. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
         t = forest_timing[binned]
@@ -1487,6 +1860,8 @@ def main() -> int:
             "replaces": f"src/repro/kernels/hist.py:{line}",
             "launches": train_launches[child]["hist"],
             "launches_per_tree": TRAIN_DEPTH,
+            "launches_by_path": {p: n[name] for p, n in
+                                 path_launches.items() if name in n},
             "max_abs_err": hist_err[child],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1503,6 +1878,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/split_gain.py:51",
         "launches": sum(v["split_gain"] for v in train_launches.values()),
         "launches_per_tree": TRAIN_DEPTH,
+        "launches_by_path": {p: n["split_gain"] for p, n in
+                             path_launches.items()},
         "max_abs_err": gain_err,
         "ms": gain_timing["ms"],
         "plain_ms": gain_timing["plain_ms"],

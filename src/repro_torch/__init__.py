@@ -2,8 +2,10 @@
 
 The JAX package ``repro`` is the reference; this package keeps its
 module names and holds to it bit for bit where it can.  It trains with
-the paper's random split proposal through hand-written histogram and
-split-gain kernels, and serves a trained forest (its own, or a
+every split-proposal strategy of the paper's comparison (random, the
+weighted-quantile and GK sketches, uniform range, exact), with optional
+per-round telemetry (``TrainReport``), through hand-written histogram
+and split-gain kernels, and serves a trained forest (its own, or a
 checkpoint of either package) through a hand-written traversal kernel::
 
     import repro_torch
@@ -12,6 +14,9 @@ checkpoint of either package) through a hand-written traversal kernel::
     margins = model.predict(x, output="margin")
     model = repro_torch.load_gbdt("model.npz")
 
+``repro_torch.core.rank_error`` holds the Theorem 1 machinery, and
+``python -m repro_torch.launch.quickstart`` runs the paper in a minute.
+
 It also prefills the dense LM family (``repro_torch.models``,
 ``repro_torch.launch.steps.make_prefill_step``) through a hand-written
 flash-attention kernel.  Entry points run on the card unless the caller
@@ -19,11 +24,12 @@ passes ``device="cpu"``.
 """
 
 from .checkpoint import load_gbdt, model_from_numpy, save_gbdt
-from .core.boosting import GBDTConfig, GBDTModel, accuracy, fit, mape
+from .core.boosting import (GBDTConfig, GBDTModel, accuracy, fit,
+                            fit_reference, mape)
 from .core.predict import forest_predict
 from .core.tree import Forest, Tree
 from .kernels.ops import HistSpec, TraverseSpec
-from .obs import PredictReport
+from .obs import PredictReport, TrainReport
 
 __all__ = [
     "Forest",
@@ -31,10 +37,12 @@ __all__ = [
     "GBDTModel",
     "HistSpec",
     "PredictReport",
+    "TrainReport",
     "TraverseSpec",
     "Tree",
     "accuracy",
     "fit",
+    "fit_reference",
     "forest_predict",
     "load_gbdt",
     "mape",

@@ -17,7 +17,7 @@ import tempfile
 import numpy as np
 import torch
 
-from ..core.boosting import device_of
+from ..kernels.ops import device_of
 from ..models.model import DecoderLM, init_params
 
 _SEP = "/"

@@ -1,7 +1,9 @@
-"""Core library: the forest, its binning, the batched inference engine
-and the model.  Tree growth and the trainers arrive with the training
-slice."""
+"""Core library: binning, split proposal and the quantile sketches, tree
+growth, the trainer and the model, the batched inference engine, and the
+Theorem 1 rank-error machinery."""
 
-from . import binning, boosting, predict, tree
+from . import (binning, boosting, predict, proposal, rank_error, sketch,
+               tree)
 
-__all__ = ["binning", "boosting", "predict", "tree"]
+__all__ = ["binning", "boosting", "predict", "proposal", "rank_error",
+           "sketch", "tree"]

@@ -5,11 +5,16 @@ so ``GBDTConfig(**json)`` on either side accepts the other's checkpoint
 (the backend keeps the JAX vocabulary; :func:`repro_torch.kernels.ops.
 backend_name` maps it).
 
-:func:`fit` trains with the paper's random split proposal.  Its round
-loop is the JAX package's round step, in the same order of operations:
-grad/hess -> propose -> bin -> ``build_tree`` -> ``margin + lr *
-leaf_value[node]``.  On the card every level of every tree is one
-histogram launch and one split-gain launch.
+:func:`fit` trains with every proposal strategy of the paper's
+comparison.  Its round loop is the JAX package's round step, in the same
+order of operations: grad/hess -> propose -> bin -> ``build_tree`` ->
+``margin + lr * leaf_value[node]``.  The device strategies (random,
+weighted_quantile, uniform_range) re-propose every round from that
+round's hessian, or once from round 0's with ``repropose_each_round=
+False``; the host strategies (gk_quantile, exact) propose once, on the
+host, before the first tree.  On the card every level of every tree is one
+histogram launch and one split-gain launch.  :func:`fit_reference` is
+the same loop with every proposal timed.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import numpy as np
 import torch
 
 from . import binning, predict as predict_lib, proposal, tree as tree_lib
-from ..kernels.ops import HistSpec, TraverseSpec
+from ..kernels.ops import HistSpec, TraverseSpec, device_of
+from ..obs.report import TrainReport, round_report
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,12 +66,16 @@ class GBDTModel:
     forest: tree_lib.Forest             # stacked (n_trees, ...) ensemble
     base_score: float
     candidates: torch.Tensor            # (rounds_proposed, f, k): n_trees
-    #                                     when the trainer re-proposed
-    #                                     each round, else 1 (fixed grid)
-    proposal_seconds: float = 0.0       # host-side strategies only; the
-    #                                     random strategy proposes inside
-    #                                     the round loop
+    #                                     when a device strategy
+    #                                     re-proposed each round, else 1
+    #                                     (fixed grid; host strategies)
+    proposal_seconds: float = 0.0       # host-side strategies only in
+    #                                     fit (the device strategies
+    #                                     propose inside the round loop);
+    #                                     every proposal in fit_reference
     fit_seconds: float = 0.0
+    report: TrainReport | None = None   # per-round telemetry when
+    #                                     config.telemetry is on
 
     @property
     def trees(self) -> list[tree_lib.Tree]:
@@ -78,9 +88,12 @@ class GBDTModel:
 
     def to(self, device) -> "GBDTModel":
         """The same model with its tensors on ``device``."""
+        report = self.report
+        if report is not None:
+            report = TrainReport(*(a.to(device) for a in report))
         return dataclasses.replace(
             self, forest=tree_lib.Forest(*(a.to(device) for a in self.forest)),
-            candidates=self.candidates.to(device))
+            candidates=self.candidates.to(device), report=report)
 
     @property
     def bin_edges(self) -> torch.Tensor | None:
@@ -158,16 +171,6 @@ class GBDTModel:
         raise ValueError(f"unknown output {output!r}")
 
 
-def device_of(device) -> torch.device:
-    """``device`` as a ``torch.device``; 'cuda' raises without a GPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on "
-            "the CPU")
-    return device
-
-
 def grad_hess(margin: torch.Tensor, y: torch.Tensor, objective: str):
     """First/second order stats of the loss with respect to the margin.
 
@@ -198,75 +201,126 @@ def _base_score(y: torch.Tensor, objective: str) -> float:
 
 def fit(x, y, cfg: GBDTConfig, generator: torch.Generator | None = None,
         *, candidates=None, device="cuda") -> GBDTModel:
-    """Train a GBDT model with random split proposal.
+    """Train a GBDT model with the proposal strategy of ``cfg``.
 
     Args:
       x: (n, f) features (array or tensor), moved to ``device`` as float32.
       y: (n,) labels ({0,1} for logistic, real for mse).
-      cfg: the config; only ``strategy='random'`` is ported.
-      generator: draws the candidate grids; a ``torch.Generator`` on
-        ``device``, seeded 0 when None.  Unused with ``candidates``.
+      cfg: the config.  With ``cfg.telemetry`` the model carries a
+        :class:`repro_torch.obs.TrainReport` in ``model.report``.
+      generator: draws the random strategy's grids; a ``torch.Generator``
+        on ``device``, seeded 0 when None.  The other strategies draw
+        nothing.
       candidates: an injected candidate grid, in the convention of
-        :attr:`GBDTModel.candidates`: (n_trees, f, k) when
-        ``cfg.repropose_each_round``, else (1, f, k).  The RNG streams of
-        the two packages differ, so parity with the JAX package's ``fit``
-        feeds its ``model.candidates`` here.
+        :attr:`GBDTModel.candidates`: (n_trees, f, k) when a device
+        strategy re-proposes each round, else (1, f, k).  The RNG streams
+        of the two packages differ, so parity with the JAX package's
+        ``fit`` feeds its ``model.candidates`` here.
       device: where to train; 'cuda' (the default) raises without a GPU.
+        The host strategies propose on the host and train on ``device``.
 
     Returns:
-      The model, on ``device``.
+      The model, on ``device``.  ``proposal_seconds`` is the host
+      strategies' one proposal; the device strategies propose inside the
+      round loop, untimed (:func:`fit_reference` times them).
     """
-    if cfg.strategy != "random":
-        raise NotImplementedError(
-            f"strategy {cfg.strategy!r} is not ported yet (ROADMAP queue 1 "
-            "item 2); the port trains with strategy='random'")
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "telemetry=True needs TrainReport, which lands with obs/ "
-            "(ROADMAP queue 1 item 3)")
+    return _fit(x, y, cfg, generator, candidates, device, reference=False)
+
+
+def fit_reference(x, y, cfg: GBDTConfig,
+                  generator: torch.Generator | None = None, *,
+                  candidates=None, device="cuda") -> GBDTModel:
+    """The JAX package's ``fit_reference``: :func:`fit`'s round loop with
+    every proposal timed into ``proposal_seconds`` (the card synchronised
+    before and after each one), and each round's margin updated by
+    descending its tree over the bins (``tree.predict_binned``) instead of
+    by the leaf ids that growth returns.  The oracle of :func:`fit`: the
+    same forest from the same generator.  It builds no report.
+    """
+    return _fit(x, y, cfg, generator, candidates, device, reference=True)
+
+
+def _proposal_rounds(cfg: GBDTConfig) -> int:
+    """Grids a fit proposes: one a round for a device strategy that
+    re-proposes, else one."""
+    if cfg.repropose_each_round and cfg.strategy in proposal.TRACEABLE:
+        return cfg.n_trees
+    return 1
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _fit(x, y, cfg: GBDTConfig, generator, candidates, device,
+         reference: bool) -> GBDTModel:
     device = device_of(device)
     x = torch.as_tensor(x, device=device).to(torch.float32)
     y = torch.as_tensor(y, device=device).to(torch.float32)
     n, f = x.shape
-    rounds = cfg.n_trees if cfg.repropose_each_round else 1
+    rounds = _proposal_rounds(cfg)
     if candidates is not None:
         candidates = torch.as_tensor(candidates, device=device).to(
             torch.float32)
         want = (rounds, f, cfg.n_candidates)
         if tuple(candidates.shape) != want:
             raise ValueError(f"candidates must have shape {want} "
-                             f"(repropose_each_round="
+                             f"(strategy={cfg.strategy!r}, "
+                             f"repropose_each_round="
                              f"{cfg.repropose_each_round}), got "
                              f"{tuple(candidates.shape)}")
     elif generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
+    timed = reference or cfg.strategy not in proposal.TRACEABLE
+    telemetry = cfg.telemetry and not reference
     t_fit0 = time.perf_counter()
 
     base = _base_score(y, cfg.objective)
     margin = torch.full((n,), base, dtype=torch.float32, device=device)
     spec = cfg.hist_spec()
-    trees, cands = [], []
+    trees, cands, rows = [], [], []
+    proposal_s = 0.0
     for r in range(cfg.n_trees):
+        g, h = grad_hess(margin, y, cfg.objective)
         if r < rounds:
             if candidates is not None:
                 c = candidates[r]
             else:
-                c = proposal.random_candidates(generator, x, cfg.n_candidates)
+                if timed:
+                    _sync(device)
+                    t0 = time.perf_counter()
+                c = proposal.propose(cfg.strategy, x, cfg.n_candidates,
+                                     generator=generator, hess=h,
+                                     device=device)
+                if timed:
+                    _sync(device)
+                    proposal_s += time.perf_counter() - t0
             bins = binning.bin_features(x, c)
             cands.append(c)
-        g, h = grad_hess(margin, y, cfg.objective)
-        t, node = tree_lib.build_tree(
+        built = tree_lib.build_tree(
             bins, torch.stack([g, h], 1), cands[-1],
             max_depth=cfg.max_depth, spec=spec, l2=cfg.l2, gamma=cfg.gamma,
-            min_child_weight=cfg.min_child_weight, return_leaf_nodes=True)
-        # growth already routed every row to its leaf
-        margin = margin + cfg.learning_rate * t.leaf_value[node.long()]
+            min_child_weight=cfg.min_child_weight, return_leaf_nodes=True,
+            return_stats=telemetry)
+        t = built[0]
+        if reference:
+            step = tree_lib.predict_binned(t, bins, max_depth=cfg.max_depth)
+        else:   # growth already routed every row to its leaf
+            step = t.leaf_value[built[1].long()]
+        margin = margin + cfg.learning_rate * step
+        if telemetry:
+            rows.append(round_report(margin=margin, y=y, g=g, h=h,
+                                     objective=cfg.objective,
+                                     stats=built[2]))
         trees.append(t)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    report = (TrainReport(*(torch.stack(a) for a in zip(*rows)))
+              if telemetry else None)
+    _sync(device)
     return GBDTModel(cfg, tree_lib.forest_from_trees(trees), base,
-                     torch.stack(cands),
-                     fit_seconds=time.perf_counter() - t_fit0)
+                     torch.stack(cands), proposal_seconds=proposal_s,
+                     fit_seconds=time.perf_counter() - t_fit0,
+                     report=report)
 
 
 def leaf_rounding(model: GBDTModel, x, y) -> torch.Tensor:

@@ -229,7 +229,7 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor,
             if spec.subtract:
                 upd = (node % 2 == 0).to(torch.float32).sum() * f
             else:
-                upd = torch.tensor(float(n * f), device=dev)
+                upd = torch.full((), float(n * f), device=dev)
             level_stats.append((do_split.to(torch.int32).sum(),
                                 _sequential_sum(realized), realized.max(),
                                 upd))

@@ -33,6 +33,16 @@ def backend_name(backend: str) -> str:
     return backend
 
 
+def device_of(device) -> torch.device:
+    """``device`` as a ``torch.device``; 'cuda' raises without a GPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on "
+            "the CPU")
+    return device
+
+
 def resolve(backend: str, device: torch.device) -> str:
     """Pin ``backend`` to ``cuda`` or ``ref`` for tensors on ``device``."""
     backend = backend_name(backend)

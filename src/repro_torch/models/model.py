@@ -22,7 +22,7 @@ from torch import nn
 
 from . import layers
 from .attention import Attention
-from ..core.boosting import device_of
+from ..kernels.ops import device_of
 
 # fields of ArchConfig that change how a model runs, not its parameters
 EXECUTION_FIELDS = ("name", "attn_impl", "attn_chunk", "causal_skip",

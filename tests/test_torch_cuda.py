@@ -18,6 +18,12 @@ plus one bf16 rounding step (2^-7 of the value), since kernel and plain
 version each round a float32 result of their own order of adds, plus
 ``ref.attention_rounding_bound``, since the Hopper kernel rounds P to
 bf16 before its product with V (the float32 plain version does not).
+
+The proposal strategies and the trainer around the kernels: the card's
+weighted-quantile and uniform-range grids are the CPU port's bit for bit
+(any NaN equal to any NaN), a small fit per strategy meets the forest
+contract against the CPU, and telemetry and ``fit_reference`` leave the
+forest as it is.
 """
 
 import dataclasses
@@ -27,9 +33,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import GBDTConfig, fit
+from repro_torch import GBDTConfig, fit, fit_reference
 from repro_torch.core.boosting import leaf_rounding
 from repro_torch.configs import get_config
+from repro_torch.core import proposal, sketch
 from repro_torch.core.proposal import random_candidates
 from repro_torch.kernels import flash_attention as flash, hist, ops, ref, \
     split_gain, traverse
@@ -489,6 +496,128 @@ def test_fit_on_card_repeats(cuda, subtract):
                 device=cuda).forest for _ in range(2))
     for name, fa, fb in zip(a._fields, a, b):
         assert torch.equal(fa, fb), name
+
+
+def _ties(n, f, seed):
+    """Half-integer values (heavy ties), 5 % -0.0 and 5 % +0.0, 2 % NaN of
+    either sign; uniform weights with 1 % zeros."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-6, 7, size=(n, f)) * 0.5).astype(np.float32)
+    z = rng.random((n, f))
+    x[z < 0.05] = -0.0
+    x[(z >= 0.05) & (z < 0.1)] = 0.0
+    nan = rng.random((n, f))
+    x[nan < 0.01] = np.nan
+    x[(nan >= 0.01) & (nan < 0.02)] = -np.float32(np.nan)
+    h = rng.random(n).astype(np.float32)
+    h[rng.random(n) < 0.01] = 0.0
+    return x, h
+
+
+def _same_grid(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (so in the sign of a zero too), any NaN equal to
+    any NaN: IEEE leaves the sign and payload of a NaN that an operation
+    returns open, and the card's column minimum returns another NaN than
+    the CPU's."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "logistic"])
+def test_device_strategies_on_card_equal_cpu(cuda, case):
+    """weighted_quantile and uniform_range on the card: the CPU port's
+    grids bit for bit, any NaN equal to any NaN (the sort's order of
+    -0.0, +0.0 and NaN included; the blocked prefix adds in one order on
+    both)."""
+    if case == "ties":
+        x, h = _ties(50_000, 4, 0)
+    else:
+        rng = np.random.default_rng(1)
+        x = rng.normal(size=(200_000, 6)).astype(np.float32)
+        p = 1 / (1 + np.exp(-rng.normal(size=200_000)))
+        h = (p * (1 - p)).astype(np.float32)
+    xc, hc = torch.from_numpy(x), torch.from_numpy(h)
+    xg, hg = xc.to(cuda), hc.to(cuda)
+    for k in (8, 32, 255):
+        got = proposal.weighted_quantile_candidates(xg, hg, k)
+        assert got.device.type == "cuda"
+        assert _same_grid(got, proposal.weighted_quantile_candidates(
+            xc, hc, k)), k
+        got = proposal.uniform_range_candidates(xg, k)
+        assert _same_grid(got, proposal.uniform_range_candidates(xc, k)), k
+    assert torch.equal(sketch.stable_order(xg.T).cpu(),
+                       sketch.stable_order(xc.T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["random", "weighted_quantile",
+                                      "uniform_range", "gk_quantile",
+                                      "exact"])
+def test_fit_each_strategy_on_card_matches_cpu(cuda, strategy):
+    """A small fit per strategy on the card and on the CPU: the same grids
+    (random's injected, the others proposed on each side: mse hessians
+    for weighted_quantile, since sigmoid may round apart), through
+    max_depth histogram and split-gain launches a tree; structure exact,
+    leaves within 1e-5 beyond the CPU's own rounding."""
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(4000, 6)).astype(np.float32)
+    y = (x @ rng.normal(size=6) > 0).astype(np.float32)
+    cfg = GBDTConfig(n_trees=6, max_depth=4, n_candidates=16,
+                     strategy=strategy,
+                     objective="mse" if strategy == "weighted_quantile"
+                     else "logistic")
+    grid = None
+    if strategy == "random":
+        gen = torch.Generator().manual_seed(0)
+        grid = torch.stack([random_candidates(gen, torch.from_numpy(x), 16)
+                            for _ in range(6)])
+    before = (hist.launches, split_gain.launches)
+    on_card = fit(x, y, cfg, candidates=grid, device=cuda)
+    assert (hist.launches - before[0],
+            split_gain.launches - before[1]) == (6 * 4, 6 * 4)
+    on_cpu = fit(x, y, cfg, candidates=grid, device="cpu")
+    assert torch.equal(on_card.candidates.cpu(), on_cpu.candidates)
+    fa, fb = on_card.forest, on_cpu.forest
+    assert torch.equal(fa.feature.cpu(), fb.feature)
+    assert torch.equal(fa.split_bin.cpu(), fb.split_bin)
+    assert torch.equal(fa.threshold.cpu(), fb.threshold)
+    diff = (fa.leaf_value.cpu() - fb.leaf_value).abs().double()
+    assert bool((diff <= 1e-5 + leaf_rounding(on_cpu, x, y)).all())
+    host = strategy in ("gk_quantile", "exact")
+    assert (on_card.proposal_seconds > 0) == host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["random", "weighted_quantile"])
+def test_telemetry_and_reference_on_card(cuda, strategy):
+    """On the card, a fit with telemetry and ``fit_reference`` give the
+    plain fit's forest bit for bit; the report lives on the card."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(20_000, 8)).astype(np.float32)
+    y = (x @ rng.normal(size=8) > 0).astype(np.float32)
+    cfg = GBDTConfig(n_trees=4, max_depth=6, n_candidates=32,
+                     strategy=strategy)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(0)
+    plain = fit(x, y, cfg, gen(), device=cuda)
+    on = fit(x, y, dataclasses.replace(cfg, telemetry=True), gen(),
+             device=cuda)
+    ref_fit = fit_reference(x, y, cfg, gen(), device=cuda)
+    for a, b, c in zip(plain.forest, on.forest, ref_fit.forest):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert plain.report is None and ref_fit.proposal_seconds > 0
+    rep = on.report
+    assert rep.train_loss.device.type == "cuda" and rep.n_rounds == 4
+    assert torch.equal(rep.n_splits.cpu(),
+                       (plain.forest.feature >= 0).sum(1).to(torch.int32)
+                       .cpu())
+    assert bool((rep.hist_updates == 20_000 * 8 * 6).all())
+    assert rep.summarize()["train_loss"]["final"] < \
+        rep.summarize()["train_loss"]["first"]
 
 
 def _attn(gen, b, hq, hkv, s, d, dtype, sk=None):

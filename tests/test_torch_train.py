@@ -34,7 +34,12 @@ reasons:
     to a JAX round loop of eager ops, and to the compiled JAX ``fit``
     for its first tree, before any margin update.
 
-``fit_reference`` is not used: eager ``propose`` fails on jax 0.9.0.
+The other strategies: ``weighted_quantile`` and ``uniform_range`` are
+held end to end against the JAX ``fit`` under mse (hessian ones: the
+port proposes the same grids) and, under logistic, on the JAX model's
+injected grids; ``gk_quantile`` and ``exact`` against the JAX scanned fit
+on the JAX function's grid.  The JAX ``fit_reference`` is not used: its
+eager ``propose`` fails on jax 0.9.0.
 """
 
 import dataclasses
@@ -441,18 +446,118 @@ def test_fit_mse_bit_equal(subtract):
     _assert_forests_match(jm.forest, tm.forest)
 
 
-def test_fit_raises_on_what_is_not_ported():
+def test_fit_rejects_a_grid_of_the_wrong_shape():
     x, y = _toy(200, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        repro_torch.fit(x, y, repro_torch.GBDTConfig(
-            strategy="weighted_quantile"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        repro_torch.fit(x, y, repro_torch.GBDTConfig(telemetry=True),
-                        device="cpu")
     with pytest.raises(ValueError, match="candidates must have shape"):
         repro_torch.fit(x, y, repro_torch.GBDTConfig(n_trees=2),
                         candidates=np.zeros((1, 3, 32), np.float32),
                         device="cpu")
+    # a host strategy proposes one grid, whatever repropose_each_round says
+    with pytest.raises(ValueError, match=r"\(1, 3, 32\)"):
+        repro_torch.fit(x, y, repro_torch.GBDTConfig(
+            n_trees=2, strategy="exact"),
+            candidates=np.zeros((2, 3, 32), np.float32), device="cpu")
+
+
+# -- fit, per strategy -------------------------------------------------------
+
+def _jax_fixed_grid_fit(x, y, kw, key, fixed):
+    """The JAX package's scanned fit on a fixed grid (``fit`` itself, for a
+    host strategy, proposes through the eager ``propose``, which fails on
+    jax 0.9.0)."""
+    cfg = jboosting.GBDTConfig(**kw)
+    margin0 = jnp.full((x.shape[0],), jboosting._base_score(
+        jnp.asarray(y), cfg.objective), jnp.float32)
+    forest, cands, _, _ = jboosting._fit_scanned(
+        jnp.asarray(x), jnp.asarray(y),
+        jboosting.round_keys(jax.random.PRNGKey(key), cfg.n_trees), margin0,
+        jnp.asarray(fixed), cfg=cfg, spec=cfg.hist_spec().resolved())
+    return forest, cands
+
+
+@pytest.mark.parametrize("strategy", ["weighted_quantile", "uniform_range"])
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_fit_device_strategy_mse_matches_jax_fit(name, strategy):
+    """Under mse the hessian is ones, so the port proposes the JAX fit's
+    grids bit for bit on its own, every round; the forests meet the
+    contract."""
+    toy_args, key, kw = PINNED[name]
+    x, y = _toy(*toy_args)
+    kw = dict(kw, strategy=strategy, objective="mse")
+    jm = jboosting.fit(x, y, jboosting.GBDTConfig(**kw),
+                       jax.random.PRNGKey(key))
+    tm = repro_torch.fit(x, y, repro_torch.GBDTConfig(**kw), device="cpu")
+    assert np.array_equal(np.asarray(jm.candidates).view(np.int32),
+                          tm.candidates.numpy().view(np.int32))
+    _assert_forests_match(jm.forest, tm.forest)
+    assert tm.proposal_seconds == 0.0
+
+
+@pytest.mark.parametrize("strategy", ["weighted_quantile", "uniform_range"])
+@pytest.mark.parametrize("name", ["random", "no_repropose"])
+def test_fit_device_strategy_logistic_matches_jax_fit(name, strategy):
+    """Under logistic the hessians round 1 ulp apart in places (sigmoid),
+    so the weighted-quantile grids are held on injection: the JAX model's
+    grids in, the contract out.  uniform_range ignores the hessian: its
+    own grids are the JAX fit's."""
+    toy_args, key, kw = PINNED[name]
+    x, y = _toy(*toy_args)
+    kw = dict(kw, strategy=strategy)
+    jm = jboosting.fit(x, y, jboosting.GBDTConfig(**kw),
+                       jax.random.PRNGKey(key))
+    cfg = repro_torch.GBDTConfig(**kw)
+    tm = repro_torch.fit(x, y, cfg, candidates=np.asarray(jm.candidates),
+                         device="cpu")
+    _assert_forests_match(jm.forest, tm.forest)
+    if strategy == "uniform_range":
+        own = repro_torch.fit(x, y, cfg, device="cpu")
+        assert np.array_equal(np.asarray(jm.candidates),
+                              own.candidates.numpy())
+        _assert_forests_equal(own.forest, tm.forest)
+
+
+@pytest.mark.parametrize("strategy", ["gk_quantile", "exact"])
+@pytest.mark.parametrize("name", ["random", "subtract", "no_repropose"])
+def test_fit_host_strategy_matches_jax_scanned_fit(name, strategy):
+    """A host strategy proposes once, before the loop, timed: its grid is
+    the JAX function's index for index, and the forest meets the contract
+    against the JAX scanned fit on that grid."""
+    toy_args, key, kw = PINNED[name]
+    x, y = _toy(*toy_args)
+    kw = dict(kw, strategy=strategy)
+    fixed = getattr(jproposal, f"{strategy}_candidates")(x, kw[
+        "n_candidates"])
+    forest, cands = _jax_fixed_grid_fit(x, y, kw, key, fixed)
+    tm = repro_torch.fit(x, y, repro_torch.GBDTConfig(**kw), device="cpu")
+    assert np.array_equal(np.asarray(cands), tm.candidates.numpy())
+    assert tm.candidates.shape == (1, x.shape[1], kw["n_candidates"])
+    _assert_forests_match(forest, tm.forest)
+    assert 0.0 < tm.proposal_seconds <= tm.fit_seconds
+    assert tm.bin_edges is not None
+
+
+@pytest.mark.parametrize("strategy", ["random", "weighted_quantile",
+                                      "uniform_range", "gk_quantile",
+                                      "exact"])
+@pytest.mark.parametrize("repropose", [True, False])
+def test_fit_reference_is_fits_oracle(strategy, repropose):
+    """``fit_reference`` (margins by descent over the bins, every proposal
+    timed) gives ``fit``'s forest and grids bit for bit from one seed."""
+    x, y = _toy(1000, 4)
+    cfg = repro_torch.GBDTConfig(n_trees=3, max_depth=3, n_candidates=8,
+                                 strategy=strategy,
+                                 repropose_each_round=repropose)
+    a = repro_torch.fit(x, y, cfg, torch.Generator().manual_seed(5),
+                        device="cpu")
+    b = repro_torch.fit_reference(x, y, cfg,
+                                  torch.Generator().manual_seed(5),
+                                  device="cpu")
+    _assert_forests_equal(a.forest, b.forest)
+    assert torch.equal(a.candidates, b.candidates)
+    assert b.proposal_seconds > 0.0 and b.report is None
+    traceable = strategy in proposal.TRACEABLE
+    assert (a.proposal_seconds == 0.0) == traceable
+    assert a.candidates.shape[0] == (3 if traceable and repropose else 1)
 
 
 def test_fit_defaults_to_the_card():
