@@ -109,7 +109,34 @@ Phases, each printing one JSON line:
    tests/test_rank_error.py's bounds of Theorem 1 (rel 0.5 random, 0.6
    quantile);
 13. quickstart -- ``launch/quickstart.py`` on the card;
-14. attn_check -- the flash-attention kernels held against their plain
+14. dist_check -- the histogram kernel on a grid shared with other ranks
+   (``bits``: a larger maximum; ``log2n``: more rows) and with raw int64
+   sums, ``torch.equal`` to ``ref.hist_levels_fixed`` given the same,
+   direct and child mode with counts, and three slices' raw sums (a NaN g
+   in one) adding up to one launch; then ``fit_distributed`` on ranks
+   that share the card (``launch.distributed.run``: NCCL at 1 rank, gloo
+   over CUDA tensors above), 4000 x 6, 6 trees, depth 4, k = 16,
+   uniform_range, direct and subtract, at 1, 3 (padded) and 8 ranks:
+   every forest field equal across them, structure equal to the
+   single-card ``fit`` and leaves within 1e-4 of it
+   (tests/test_distributed.py's bound; the base score is float32 here,
+   float64 there); 24 + 24 launches on every rank;
+15. dist_train -- the training cell at 1 and 8 ranks (one start of ranks
+   with dist_check's): uniform_range direct and subtract equal across
+   them; at 8 ranks random twice from one seed (equal) and
+   weighted_quantile with telemetry, holdout accuracy within 0.03 of the
+   single-card ``table2`` fit, fit seconds on every rank, 120 + 120
+   launches on every rank (counts reset just before each fit and read
+   just after, in each rank), bytes a round through the collectives
+   beside ``collective_bytes_per_round``'s estimate, and the host ms of
+   one all-reduce of the training panel alone; dist_profile -- a round on
+   rank 0 of 8 by kernel, its collectives' host time and its idle share;
+16. dist_serve -- ``serve(data_shards=2)`` from 2 ranks on the serving
+   cell: p50 and p99, one forest-sum launch a request on each rank, and
+   all 32 requests' margins bit-identical to unsharded serving;
+17. dist_example -- ``launch/distributed_gbdt.py`` on 8 ranks at the
+   example's sizes (32 768 / 8 192 rows, 10 trees, depth 5);
+18. attn_check -- the flash-attention kernels held against their plain
    version (``ref.attention_ref``) on the card: MHA, GQA and MQA; causal,
    window 128, window 200 (not a tile multiple) and none; head dims 32,
    64, 80, 128; 128 and 384 tokens, and 2048 (16 K/V tiles); ragged
@@ -122,19 +149,19 @@ Phases, each printing one JSON line:
    ``ref.attention_rounding_bound`` (the Hopper kernel rounds P to bf16
    before its product with V); and the prefill's own shape, q (2, 32,
    4096, 128), k/v (2, 2, 4096, 128), causal, bf16;
-15. attn_time -- the kernel at that shape with CUDA events, beside the
+19. attn_time -- the kernel at that shape with CUDA events, beside the
    plain version, ``F.scaled_dot_product_attention`` (the library
    yardstick, never called by the port) and the bound; its TFLOP/s and
    its share of the bound;
-16. prefill -- glm4-9b at full width and depth (40 layers, random bf16
+20. prefill -- glm4-9b at full width and depth (40 layers, random bf16
    weights from a seeded generator on the card) through
    ``make_prefill_step``: one warm-up request, then 4 requests of 2 x
    4096 tokens; p50 ms, tokens/s, peak memory, 40 flash launches a
    request, all of the Hopper kernel (counts reset just before, read
    just after), the greedy next token;
-17. prefill_profile -- one request's device time by kernel (flash,
+21. prefill_profile -- one request's device time by kernel (flash,
    GEMMs, the rest) and the device's idle share;
-18. prefill_check -- glm4-9b at full width with 2 layers, 1 x 256 tokens,
+22. prefill_check -- glm4-9b at full width with 2 layers, 1 x 256 tokens,
    ``attn_impl="pallas"``, the card against the port on the CPU with the
    same weights.  With float32 activations (the same modules, no bf16
    rounding between them) the logits agree within 2e-4 abs and rel.  The
@@ -147,10 +174,12 @@ Phases, each printing one JSON line:
    on the CUDA-core kernel; and a ragged case, 1 x 1000 tokens through
    ``xla_chunked`` (blockwise, padded on the card), float32 activations,
    card against CPU within 2e-4 abs and rel;
-19. kernels -- one line listing every ported kernel with its launches,
+23. total -- the script's seconds; kernels -- one line listing every
+   ported kernel with its launches,
    error, times, bound, launch floor and ``deterministic`` flag (and for
    flash attention the variant and its SASS counts; for the histogram and
-   split gain also their launches on each path of phases 10 and 11).  The
+   split gain also their launches on each path of phases 10, 11, 14
+   and 15, per rank on the distributed paths).  The
    per-tree traversal is on no path any more (``launches`` 0,
    ``on_main_path`` false): it is listed as the counterpart of
    ``ops.traverse_chunk``.
@@ -590,7 +619,242 @@ def logloss(margin, y) -> float:
         margin, y))
 
 
+# ---------------------------------------------------------------------------
+# The distributed phases: what each rank runs (``launch.distributed.run``
+# starts the ranks with ``spawn`` and pickles these functions by name).
+# ---------------------------------------------------------------------------
+
+DIST_CHECK = dict(rows=4000, features=6, n_trees=6, max_depth=4,
+                  n_candidates=16)
+DIST_WORLDS = (1, 3, 8)
+DIST_SERVE_SHARDS = 2
+EXAMPLE_WORKERS = 8
+
+
+def training_counts() -> dict:
+    from repro_torch.kernels import hist, split_gain
+    return {"hist_levels": hist.launches,
+            "hist_levels_left": hist.left_launches,
+            "split_gain": split_gain.launches}
+
+
+def reset_training_counts() -> None:
+    from repro_torch.kernels import hist, split_gain
+    hist.launches = hist.left_launches = split_gain.launches = 0
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal, with a float32 NaN equal to a NaN of the same bits."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def per_rank(values: list) -> list:
+    """Every rank's ``values`` (all int, or all float), in rank order."""
+    from repro_torch.launch import distributed as dist_lib
+    dtype = (torch.int64 if all(isinstance(v, int) for v in values)
+             else torch.float64)
+    t = torch.tensor(values, dtype=dtype, device="cuda")
+    return [p.tolist() for p in dist_lib.all_gather(t)]
+
+
+def dist_fit(x, y, cfg, *, seed=0):
+    """One distributed fit with the launch counts reset just before it and
+    read just after, and the bytes its collectives moved on this rank."""
+    import torch.distributed as dist
+    from repro_torch import fit_distributed
+    from repro_torch.launch import distributed as dist_lib
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_training_counts()
+    before = dist_lib.collective_bytes
+    t0 = time.perf_counter()
+    model = fit_distributed(x, y, cfg, seed=seed, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = training_counts()
+    return model, dict(wall=wall, counts=counts,
+                       bytes=dist_lib.collective_bytes - before)
+
+
+def dist_check_rank() -> dict:
+    """The 4000 x 6 uniform_range fits, direct and subtract (padded at 3
+    ranks): the forests, and the launches of each rank."""
+    from repro_torch import GBDTConfig
+    rng = np.random.default_rng(0)
+    c = DIST_CHECK
+    xs = rng.normal(size=(c["rows"], c["features"])).astype(np.float32)
+    ys = (xs @ rng.normal(size=c["features"]) > 0).astype(np.float32)
+    out = {}
+    for subtract in (False, True):
+        cfg = GBDTConfig(n_trees=c["n_trees"], max_depth=c["max_depth"],
+                         n_candidates=c["n_candidates"],
+                         strategy="uniform_range", subtract=subtract)
+        model, run = dist_fit(xs, ys, cfg)
+        counts = run["counts"]
+        mode = "hist_levels_left" if subtract else "hist_levels"
+        out[subtract] = dict(
+            forest=[a.cpu() for a in model.forest],
+            launches=per_rank([counts[mode], counts["split_gain"],
+                               sum(counts.values())]))
+    return out
+
+
+def dist_train_rank() -> dict:
+    """The training cell on the ranks: uniform_range direct and subtract;
+    at 8 ranks also random (twice from one seed) and weighted_quantile
+    with telemetry, holdout accuracy on rank 0, and one round profiled on
+    rank 0."""
+    import dataclasses as dc
+    import torch.distributed as dist
+    from repro_torch import GBDTConfig, accuracy, fit_distributed
+    from repro_torch.data import tabular
+    from repro_torch.kernels import traverse
+    world, rank = dist.get_world_size(), dist.get_rank()
+    x, y = tabular.gaussian_classification(TRAIN_ROWS + HOLDOUT_ROWS,
+                                           TRAIN_FEATURES, seed=0)
+    x_tr = torch.from_numpy(x[:TRAIN_ROWS]).cuda()
+    y_tr = torch.from_numpy(y[:TRAIN_ROWS]).cuda()
+    x_ho = torch.from_numpy(x[TRAIN_ROWS:]).cuda()
+    y_ho = torch.from_numpy(y[TRAIN_ROWS:]).cuda()
+    base = GBDTConfig(n_trees=TRAIN_TREES, max_depth=TRAIN_DEPTH,
+                      n_candidates=TRAIN_CANDIDATES)
+    # warm-up: the allocator's first growth and the first launches
+    fit_distributed(x_tr, y_tr, dc.replace(base, n_trees=1,
+                                           strategy="uniform_range"),
+                    device="cuda")
+    runs = [("uniform_range", False, False), ("uniform_range", True, False)]
+    if world == EXAMPLE_WORKERS:
+        runs += [("random", False, True), ("random/again", False, True),
+                 ("weighted_quantile", False, True)]
+    out = {}
+    for name, subtract, telemetry in runs:
+        cfg = dc.replace(base, strategy=name.split("/")[0],
+                         subtract=subtract, telemetry=telemetry)
+        model, run = dist_fit(x_tr, y_tr, cfg, seed=0)
+        mode = "hist_levels_left" if subtract else "hist_levels"
+        row = dict(forest=[a.cpu() for a in model.forest],
+                   fit_seconds=[v[0] for v in per_rank([model.fit_seconds])],
+                   launches=per_rank([run["counts"][mode],
+                                      run["counts"]["split_gain"],
+                                      sum(run["counts"].values())]),
+                   collective_bytes_per_round=run["bytes"] / cfg.n_trees)
+        if telemetry:
+            row["summary"] = model.report.summarize()
+            row["estimate_bytes_per_round"] = float(
+                (model.report.all_gather_bytes + model.report.psum_bytes)
+                .double().mean())
+        if rank == 0:
+            traverse.forest_launches = 0
+            row["holdout_accuracy"] = accuracy(model, x_ho, y_ho)
+            row["holdout_forest_sum_launches"] = traverse.forest_launches
+        out[f"{name}/{'subtract' if subtract else 'direct'}"] = row
+    if world == EXAMPLE_WORKERS:
+        out["profile"] = dist_profile(x_tr, y_tr, dc.replace(
+            base, n_trees=2, strategy="random"))
+    out["collective_ms"] = collective_ms()
+    return out
+
+
+def collective_ms(iters: int = 20) -> dict:
+    """Host ms of one collective as a round calls it, alone: an all-reduce
+    of the training panel's int64 sums (32 x 28 x 33 x 2) on the card and
+    (gloo only) on the host, of one value, and an all-gather of a pool
+    (28 x 32)."""
+    import torch.distributed as dist
+    from repro_torch.launch import distributed as dist_lib
+    panel = TRAIN_NODES * TRAIN_FEATURES * TRAIN_BINS * 2
+    cases = {"all_reduce_panel_int64_card": (dist_lib.all_reduce, torch.ones(
+                 panel, dtype=torch.int64, device="cuda")),
+             "all_reduce_one_int64_card": (dist_lib.all_reduce, torch.ones(
+                 1, dtype=torch.int64, device="cuda")),
+             "all_gather_pool_card": (dist_lib.all_gather, torch.ones(
+                 TRAIN_FEATURES * TRAIN_CANDIDATES, device="cuda"))}
+    if dist.get_backend() == "gloo":
+        cases["all_reduce_panel_int64_host"] = (dist_lib.all_reduce,
+                                                torch.ones(panel,
+                                                           dtype=torch.int64))
+    out = {}
+    for name, (fn, t) in cases.items():
+        for _ in range(3):
+            fn(t)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(t)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / iters * 1e3
+    return out
+
+
+def dist_profile(x, y, cfg) -> dict | None:
+    """Rounds of a random fit on every rank: wall ms a round (unprofiled),
+    then rank 0's device time by kernel, its collectives' host time by op
+    and its idle share (profiled)."""
+    import torch.distributed as dist
+    from repro_torch import fit_distributed
+    _, run = dist_fit(x, y, cfg)
+    wall_ms = run["wall"] / cfg.n_trees * 1e3
+    torch.cuda.synchronize()
+    dist.barrier()
+    prof = None
+    if dist.get_rank() == 0:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    fit_distributed(x, y, cfg, device="cuda")
+    torch.cuda.synchronize()
+    if prof is None:
+        return None
+    prof.__exit__(None, None, None)
+    rows = by_kernel(prof, cfg.n_trees, "round")
+    busy_ms = sum(r["device_us_per_round"] for r in rows) / 1e3
+    coll = [{"name": ev.key, "count": ev.count / cfg.n_trees,
+             "host_us_per_round": ev.cpu_time_total / cfg.n_trees}
+            for ev in prof.key_averages()
+            if re.search(r"all_?reduce|all_?gather|broadcast|barrier",
+                         ev.key, re.IGNORECASE)]
+    coll.sort(key=lambda r: -r["host_us_per_round"])
+    return dict(rounds=cfg.n_trees, wall_ms_per_round=wall_ms,
+                device_ms_per_round=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms,
+                by_kernel=rows[:10], collectives=coll[:8])
+
+
+def dist_serve_rank() -> dict:
+    """``serve`` with ``data_shards`` on the serving cell, then every
+    request's margins sharded against unsharded."""
+    from repro_torch.kernels import traverse
+    from repro_torch.launch import serve_gbdt
+    model = serve_gbdt.synthetic_gbdt(
+        n_trees=TREES, max_depth=DEPTH, n_features=FEATURES,
+        n_candidates=CANDIDATES, seed=0, device="cuda")
+    traverse.launches = traverse.forest_launches = 0
+    report = serve_gbdt.serve(model, microbatch=MICROBATCH,
+                              n_requests=REQUESTS,
+                              data_shards=DIST_SERVE_SHARDS)
+    launches = per_rank([traverse.forest_launches, traverse.launches])
+    equal = []
+    for xb in serve_gbdt.request_batches(model, microbatch=MICROBATCH,
+                                         n_requests=REQUESTS, seed=0):
+        got = serve_gbdt.shard_predict(model, xb, output="margin")
+        want = model.predict(xb, output="margin")
+        equal.append(same_bits(got, want) and got.shape == (MICROBATCH,)
+                     and bool(torch.isfinite(got).all()))
+    return dict(engine=report.engine, summary=report.summarize(),
+                launches=launches, margins_equal=equal)
+
+
+def dist_rank(tasks: tuple) -> dict:
+    """The tasks of one start of the ranks, in order."""
+    fns = {"check": dist_check_rank, "train": dist_train_rank}
+    return {task: fns[task]() for task in tasks}
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a GPU", file=sys.stderr)
@@ -605,7 +869,8 @@ def main() -> int:
     from repro_torch.kernels import _build, hist, ops, ref, split_gain, \
         traverse
     from repro_torch.kernels import flash_attention as flash
-    from repro_torch.launch import quickstart, serve_gbdt
+    from repro_torch.launch import distributed as dist_lib, \
+        distributed_gbdt, quickstart, serve_gbdt
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import init_params
 
@@ -1524,7 +1789,232 @@ def main() -> int:
          report=qs["report"], fig2=qs["fig2"],
          seconds=time.perf_counter() - t0)
 
-    # 14. attn_check -------------------------------------------------------
+    # 14. dist_check --------------------------------------------------------
+    # the histogram kernel on a shared grid with raw sums, against its
+    # fixed-point emulation given the same; then the distributed fits of
+    # the 4000 x 6 set at 1, 3 (padded) and 8 ranks, every forest field
+    # equal across them, against the single-card fit
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    grid_cases = 0
+    for child in (False, True):
+        for n, f, nbins, n_nodes, L in (
+                (4097, 6, 17, 8, 1), (20_000, TRAIN_FEATURES, TRAIN_BINS,
+                                      TRAIN_NODES, TRAIN_DEPTH),
+                (TRAIN_ROWS // EXAMPLE_WORKERS, TRAIN_FEATURES, TRAIN_BINS,
+                 TRAIN_NODES, 1)):
+            if child:
+                n_nodes //= 2
+            bins, node, _, gh = hist_case(gen, n=n, f=f, nbins=nbins,
+                                          n_nodes=n_nodes, L=L, child=child)
+            kernel = (hist.hist_levels_left_cuda if child
+                      else hist.hist_levels_cuda)
+            kw = dict(n_nodes=n_nodes, nbins=nbins)
+            log2n = ref.log2_ceil(n)
+            # the launch's own grid, a larger maximum and more rows (as
+            # another rank's would give), raw and rounded
+            for bits, lg in ((ref.max_bits(gh), log2n),
+                             (ref.max_bits(3 * gh), log2n + 3)):
+                for raw in (False, True):
+                    got = kernel(bins, node, gh, bits=bits, log2n=lg,
+                                 raw=raw, **kw)
+                    want = ref.hist_levels_fixed(bins, node, gh, bits=bits,
+                                                 log2n=lg, raw=raw,
+                                                 child=child, **kw)
+                    torch.cuda.synchronize()
+                    if child:
+                        check(torch.equal(got[1], want[1]), "dist_check: "
+                              f"shared-grid row counts differ (n={n})")
+                        got, want = got[0], want[0]
+                    check(same_bits(got, want), f"dist_check: the kernel "
+                          f"on a shared grid (child={child}, n={n}, raw="
+                          f"{raw}) differs from ref.hist_levels_fixed")
+                    grid_cases += 1
+            # three 'ranks' of these rows, a NaN g on the second: their
+            # raw sums on the shared grid add up to one launch over all
+            g_nan = gh.clone()
+            g_nan[n // 2, 0] = float("nan")
+            cut = [0, n // 3, 2 * n // 3, n]
+            parts = [slice(a, b) for a, b in zip(cut, cut[1:]) if b > a]
+            bits = torch.stack([ref.max_bits(g_nan[sl])
+                                for sl in parts]).amax(0)
+            total = cnt = 0
+            for sl in parts:
+                out = kernel(bins[sl].contiguous(), node[:, sl].contiguous(),
+                             g_nan[sl].contiguous(), bits=bits, log2n=log2n,
+                             raw=True, **kw)
+                if child:
+                    out, c = out
+                    cnt = cnt + c
+                total = total + out
+            one = kernel(bins, node, g_nan, **kw)
+            want = ref.hist_levels_fixed(bins, node, g_nan, child=child, **kw)
+            torch.cuda.synchronize()
+            if child:
+                check(torch.equal(cnt, one[1]) and torch.equal(cnt, want[1]),
+                      "dist_check: summed row counts differ")
+                one, want = one[0], want[0]
+            summed = ref.from_fixed(total, bits, log2n)
+            check(same_bits(summed, one) and same_bits(summed, want)
+                  and bool(torch.isnan(summed[..., 0]).all())
+                  and bool(torch.isfinite(summed[..., 1]).all()),
+                  f"dist_check: three ranks' raw sums (a NaN g on one) differ "
+                  f"from one launch (child={child}, n={n})")
+            grid_cases += 1
+    dist_runs, spawn_seconds = {}, {}
+    for w in DIST_WORLDS:
+        t0 = time.perf_counter()
+        dist_runs[w] = dist_lib.run(
+            dist_rank, w, ("check", "train") if w in (1, EXAMPLE_WORKERS)
+            else ("check",), device="cuda")
+        spawn_seconds[w] = time.perf_counter() - t0
+    c = DIST_CHECK
+    rng = np.random.default_rng(0)
+    xs = rng.normal(size=(c["rows"], c["features"])).astype(np.float32)
+    ys = (xs @ rng.normal(size=c["features"]) > 0).astype(np.float32)
+    dist_check = {}
+    for subtract in (False, True):
+        cfg = GBDTConfig(n_trees=c["n_trees"], max_depth=c["max_depth"],
+                         n_candidates=c["n_candidates"],
+                         strategy="uniform_range", subtract=subtract)
+        single = [a.cpu() for a in fit(xs, ys, cfg, device="cuda").forest]
+        forests = {w: r["check"][subtract]["forest"]
+                   for w, r in dist_runs.items()}
+        first = forests[DIST_WORLDS[0]]
+        equal = {w: all(torch.equal(a, b) for a, b in zip(first, fw))
+                 for w, fw in forests.items()}
+        leaf_err = float((single[3] - first[3]).abs().max())
+        per_tree = cfg.max_depth * cfg.n_trees
+        dist_launches = {w: r["check"][subtract]["launches"]
+                    for w, r in dist_runs.items()}
+        check(all(equal.values()), f"dist_check subtract={subtract}: the "
+              f"forests differ across world sizes: {equal}")
+        check(torch.equal(single[0], first[0]) and torch.equal(single[1],
+                                                               first[1])
+              and leaf_err <= 1e-4, f"dist_check subtract={subtract}: the "
+              f"distributed forest differs from the single-card fit "
+              f"(leaf max_abs_err={leaf_err})")
+        check(all(v[0] == per_tree and v[1] == per_tree and v[2] == 2
+                  * per_tree for ls in dist_launches.values() for v in ls),
+              f"dist_check subtract={subtract}: launches {dist_launches}, "
+              f"want {per_tree} of the histogram's mode and of split gain "
+              "on every rank")
+        mode = "hist_levels_left" if subtract else "hist_levels"
+        for w, ls in dist_launches.items():
+            path = f"dist_check/W{w}/{'subtract' if subtract else 'direct'}"
+            path_launches[path] = {mode: [v[0] for v in ls],
+                                   "split_gain": [v[1] for v in ls]}
+        dist_check[subtract] = dict(equal_across_world_sizes=equal,
+                                    structure_equal_single_card=True,
+                                    leaf_max_abs_err_vs_single_card=leaf_err,
+                                    launches_per_rank=dist_launches)
+    emit("dist_check", worlds=list(DIST_WORLDS), **DIST_CHECK,
+         strategy="uniform_range", kernel_shared_grid_cases=grid_cases,
+         direct=dist_check[False], subtract=dist_check[True],
+         leaf_tolerance_vs_single_card=1e-4,
+         run_seconds_by_world=spawn_seconds,
+         seconds=time.perf_counter() - t_phase)
+
+    # 15. dist_train --------------------------------------------------------
+    # the training cell at 1 and 8 ranks (one card: NCCL at 1, gloo over
+    # CUDA tensors at 8)
+    t_phase = time.perf_counter()
+    trains = {w: dist_runs[w]["train"] for w in (1, EXAMPLE_WORKERS)}
+    per_tree = TRAIN_DEPTH * TRAIN_TREES
+    for w, runs in trains.items():
+        for name, row in runs.items():
+            if name in ("profile", "collective_ms"):
+                continue
+            check(all(v[0] == per_tree and v[1] == per_tree
+                      and v[2] == 2 * per_tree for v in row["launches"]),
+                  f"dist_train W={w} {name}: launches {row['launches']}, "
+                  f"want {per_tree} histogram and {per_tree} split-gain on "
+                  "every rank")
+            mode = ("hist_levels_left" if name.endswith("subtract")
+                    else "hist_levels")
+            path_launches[f"dist_train/W{w}/{name}"] = {
+                mode: [v[0] for v in row["launches"]],
+                "split_gain": [v[1] for v in row["launches"]]}
+    uniform_equal = {}
+    for mode in ("direct", "subtract"):
+        a = trains[1][f"uniform_range/{mode}"]["forest"]
+        b = trains[EXAMPLE_WORKERS][f"uniform_range/{mode}"]["forest"]
+        uniform_equal[mode] = {f: torch.equal(u, v) for f, u, v in
+                               zip(tree_lib.Forest._fields, a, b)}
+        check(all(uniform_equal[mode].values()), f"dist_train uniform_range "
+              f"{mode}: W=1 and W={EXAMPLE_WORKERS} differ: "
+              f"{uniform_equal[mode]}")
+    w8 = trains[EXAMPLE_WORKERS]
+    repeat_equal = {f: torch.equal(u, v) for f, u, v in zip(
+        tree_lib.Forest._fields, w8["random/direct"]["forest"],
+        w8["random/again/direct"]["forest"])}
+    check(all(repeat_equal.values()), f"dist_train: two random fits from "
+          f"one seed differ: {repeat_equal}")
+    dist_acc = {}
+    for strategy in ("random", "weighted_quantile"):
+        row = w8[f"{strategy}/direct"]
+        single_acc = table[f"table2/{strategy}/{TRAIN_ROWS}"][
+            "holdout_accuracy"]
+        dist_acc[strategy] = dict(distributed=row["holdout_accuracy"],
+                                  single_card=single_acc)
+        check(abs(row["holdout_accuracy"] - single_acc) <= 0.03
+              and row["holdout_forest_sum_launches"] == 1
+              and row["summary"]["train_loss"]["final"]
+              < row["summary"]["train_loss"]["first"],
+              f"dist_train {strategy}: holdout accuracy "
+              f"{row['holdout_accuracy']} against the single card's "
+              f"{single_acc} (bound 0.03), loss "
+              f"{row['summary']['train_loss']}")
+    emit("dist_train", rows=TRAIN_ROWS, features=TRAIN_FEATURES,
+         n_trees=TRAIN_TREES, max_depth=TRAIN_DEPTH,
+         n_candidates=TRAIN_CANDIDATES, reduced=["rows: 11M -> 1M"],
+         worlds=[1, EXAMPLE_WORKERS], backends={
+             w: dist_lib.backend_for("cuda", w) for w in (1, EXAMPLE_WORKERS)},
+         uniform_range_equal_w1_w8=uniform_equal,
+         random_repeat_equal=repeat_equal, accuracy=dist_acc,
+         single_card_fit_seconds={
+             s: table[f"table2/{s}/{TRAIN_ROWS}"]["fit_seconds"]
+             for s in ("random", "weighted_quantile", "uniform_range")},
+         runs={f"W{w}/{name}": {k: v for k, v in row.items()
+                                if k != "forest"}
+               for w, runs in trains.items() for name, row in runs.items()
+               if name not in ("profile", "collective_ms")},
+         collective_ms={w: runs["collective_ms"] for w, runs in
+                        trains.items()},
+         seconds=time.perf_counter() - t_phase)
+    emit("dist_profile", world=EXAMPLE_WORKERS, rank=0, strategy="random",
+         **w8["profile"])
+    del dist_runs, trains, w8
+
+    # 16. dist_serve --------------------------------------------------------
+    t_phase = time.perf_counter()
+    served = dist_lib.run(dist_serve_rank, DIST_SERVE_SHARDS, device="cuda")
+    check(all(served["margins_equal"]) and len(served["margins_equal"])
+          == REQUESTS, "dist_serve: sharded margins differ from unsharded "
+          f"serving ({served['margins_equal']})")
+    check(all(v[0] == REQUESTS + WARMUP_REQUESTS and v[1] == 0
+              for v in served["launches"]), f"dist_serve: launches "
+          f"{served['launches']} (forest sum, per tree) on the ranks, want "
+          "one forest-sum launch a request on each")
+    emit("dist_serve", data_shards=DIST_SERVE_SHARDS, backend=dist_lib.
+         backend_for("cuda", DIST_SERVE_SHARDS), trees=TREES, depth=DEPTH,
+         features=FEATURES, microbatch=MICROBATCH, requests=REQUESTS,
+         margins_bit_identical=True, launches_per_rank=served["launches"],
+         engine=served["engine"], summary=served["summary"],
+         seconds=time.perf_counter() - t_phase)
+
+    # 17. dist_example ------------------------------------------------------
+    t_phase = time.perf_counter()
+    example = distributed_gbdt.main(["--workers", str(EXAMPLE_WORKERS),
+                                     "--device", "cuda"])
+    ex = example["results"]
+    check(all(r["acc"] > 0.6 for r in ex.values())
+          and all(ex[s]["loss_final"] < ex[s]["loss_first"]
+                  for s in distributed_gbdt.STRATEGIES),
+          f"dist_example: {ex}")
+    emit("dist_example", **example, seconds=time.perf_counter() - t_phase)
+
+    # 18. attn_check -------------------------------------------------------
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(2)
 
@@ -1614,7 +2104,7 @@ def main() -> int:
                  "no_mask_raises": ragged_refusal},
          seconds=time.perf_counter() - t_phase)
 
-    # 15. attn_time --------------------------------------------------------
+    # 19. attn_time --------------------------------------------------------
     t_phase = time.perf_counter()
     ms, issue_ms = cuda_ms(lambda: flash.flash_attention_cuda(
         q, k, v, causal=True), iters=10, warmup=2)
@@ -1637,7 +2127,7 @@ def main() -> int:
     del q, k, v
     torch.cuda.empty_cache()
 
-    # 16. prefill ---------------------------------------------------------
+    # 20. prefill ---------------------------------------------------------
     t_phase = time.perf_counter()
     model = init_params(lm_cfg, generator=torch.Generator(
         device="cuda").manual_seed(0), device="cuda")
@@ -1694,7 +2184,7 @@ def main() -> int:
          next_tokens=next_tokens,
          seconds=time.perf_counter() - t_phase)
 
-    # 17. prefill_profile ---------------------------------------------------
+    # 21. prefill_profile ---------------------------------------------------
     t_phase = time.perf_counter()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -1720,7 +2210,7 @@ def main() -> int:
     del model, prof
     torch.cuda.empty_cache()
 
-    # 18. prefill_check ---------------------------------------------------
+    # 22. prefill_check ---------------------------------------------------
     t_phase = time.perf_counter()
     check_cfg = dataclasses.replace(lm_cfg, n_layers=2, attn_impl="pallas")
     model = init_params(check_cfg, generator=torch.Generator(
@@ -1813,7 +2303,7 @@ def main() -> int:
          cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_phase)
     del model, card, on_cpu, card_f32, cpu_f32, card_ragged, cpu_ragged
 
-    # 19. kernels ---------------------------------------------------------
+    # 23. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
         t = forest_timing[binned]
@@ -1907,6 +2397,7 @@ def main() -> int:
         "library_ms": attn_timing["library_ms"],
         "deterministic": repeats["flash_attention"],
     })
+    emit("total", seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

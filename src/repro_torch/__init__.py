@@ -14,8 +14,12 @@ checkpoint of either package) through a hand-written traversal kernel::
     margins = model.predict(x, output="margin")
     model = repro_torch.load_gbdt("model.npz")
 
-``repro_torch.core.rank_error`` holds the Theorem 1 machinery, and
-``python -m repro_torch.launch.quickstart`` runs the paper in a minute.
+``repro_torch.fit_distributed`` is the paper's Algorithm 1 on the ranks
+of a ``torch.distributed`` group (``repro_torch.launch.distributed.run``
+starts them; ``python -m repro_torch.launch.distributed_gbdt`` runs the
+example).  ``repro_torch.core.rank_error`` holds the Theorem 1
+machinery, and ``python -m repro_torch.launch.quickstart`` runs the
+paper in a minute.
 
 It also prefills the dense LM family (``repro_torch.models``,
 ``repro_torch.launch.steps.make_prefill_step``) through a hand-written
@@ -26,6 +30,7 @@ passes ``device="cpu"``.
 from .checkpoint import load_gbdt, model_from_numpy, save_gbdt
 from .core.boosting import (GBDTConfig, GBDTModel, accuracy, fit,
                             fit_reference, mape)
+from .core.distributed import fit_distributed
 from .core.predict import forest_predict
 from .core.tree import Forest, Tree
 from .kernels.ops import HistSpec, TraverseSpec
@@ -42,6 +47,7 @@ __all__ = [
     "Tree",
     "accuracy",
     "fit",
+    "fit_distributed",
     "fit_reference",
     "forest_predict",
     "load_gbdt",

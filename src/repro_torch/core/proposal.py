@@ -149,9 +149,13 @@ def uniform_range_candidates(x: torch.Tensor, k: int) -> torch.Tensor:
     ``lo + (hi - lo) * t`` into one fused multiply-add; both are written
     out, so the grid is the JAX package's bit for bit.
     """
-    lo = x.amin(dim=0)
-    hi = x.amax(dim=0)
-    t = torch.arange(1, k + 1, dtype=torch.float32, device=x.device) \
+    return uniform_grid(x.amin(dim=0), x.amax(dim=0), k)
+
+
+def uniform_grid(lo: torch.Tensor, hi: torch.Tensor, k: int) -> torch.Tensor:
+    """(f, k): k evenly spaced points strictly inside each ``[lo, hi]``
+    (f,), as :func:`uniform_range_candidates` forms them."""
+    t = torch.arange(1, k + 1, dtype=torch.float32, device=lo.device) \
         * torch.tensor(1.0 / (k + 1), dtype=torch.float32)
     return _fma32(lo[:, None], (hi - lo)[:, None], t[None, :])
 

@@ -123,7 +123,8 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor,
                candidates: torch.Tensor, *, max_depth: int, spec: HistSpec,
                l2: float = 1.0, gamma: float = 0.0,
                min_child_weight: float = 1e-6,
-               return_leaf_nodes: bool = False, return_stats: bool = False):
+               return_leaf_nodes: bool = False, return_stats: bool = False,
+               reduce=None):
     """Grow one tree on binned data, level by level.
 
     Every level works on the same frontier of ``F = 2^(max_depth-1)``
@@ -145,6 +146,15 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor,
     would leave a rounding residue that breaks the exact tie between an
     empty bin and its neighbour.  On the CPU that bucket is already 0.
 
+    With ``reduce`` (the counterpart of the JAX package's ``axis_name``)
+    this process holds some of the rows and the other ranks of a group
+    the rest: every histogram, the left half panel and its row counts
+    under subtraction (before ``parent - left`` and the empty-bucket mask),
+    and the leaf sums are summed over the group, at the three places the
+    JAX package's ``psum`` sits.  ``reduce`` is a
+    :class:`repro_torch.core.distributed.TreeReduce` made for this tree's
+    ``gh``; every rank grows the same tree.
+
     Args:
       bins: (n, f) int32 bin ids in [0, spec.nbins).
       gh: (n, 2) float32 grad/hess panel of this round.
@@ -154,6 +164,7 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor,
         frontier.
       return_leaf_nodes: also return each row's final leaf id.
       return_stats: also return a :class:`TreeStats`.
+      reduce: the group's reductions for this ``gh``; None on one host.
 
     Returns:
       A :class:`Tree`, extended to ``(Tree, node)`` with
@@ -165,6 +176,8 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor,
         raise ValueError(f"spec.n_nodes={spec.n_nodes} < frontier {frontier} "
                          f"for max_depth={max_depth}")
     nbins = spec.nbins
+    hist_levels = ops.hist_levels if reduce is None else reduce.hist_levels
+    leaf_sums = ops.leaf_sums if reduce is None else reduce.leaf_sums
     lspec = spec.with_levels(1)          # one call = one level
     sspec = dataclasses.replace(lspec, n_nodes=frontier).child_view()
     half = sspec.n_nodes                 # parents of the left-only panel
@@ -188,7 +201,7 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor,
                              device=dev)                 # rows per bucket
     for depth in range(max_depth):
         if spec.subtract:
-            left, left_n = ops.hist_levels(bins, node[None], gh, sspec)
+            left, left_n = hist_levels(bins, node[None], gh, sspec)
             left, left_n = left[0], left_n[0]
             if frontier == 1:
                 hist, cnt = left, left_n     # single-node level: the root
@@ -202,7 +215,7 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor,
                 cnt = torch.where(keep, cnt, 0)
             prev, prev_n = hist, cnt
         else:
-            hist = ops.hist_levels(bins, node[None], gh, lspec)[0]
+            hist = hist_levels(bins, node[None], gh, lspec)[0]
 
         gains, sbins = ops.split_gain(hist, l2=l2, gamma=gamma,
                                       min_child_weight=min_child_weight,
@@ -244,7 +257,7 @@ def build_tree(bins: torch.Tensor, gh: torch.Tensor,
     # leaf values from the final-level grad/hess totals (on the CPU the
     # adds run in row order, as the JAX package's scatter does; on the
     # card in fixed point, the same in any order)
-    seg = ops.leaf_sums(node, gh, 2 ** max_depth, backend=spec.backend)
+    seg = leaf_sums(node, gh, 2 ** max_depth, backend=spec.backend)
     leaf_value = -seg[:, 0] / (seg[:, 1] + l2)
     tree = Tree(feature, split_bin, threshold, leaf_value)
     out = (tree,)

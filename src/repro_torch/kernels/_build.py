@@ -6,6 +6,14 @@ the checkout.  Nothing is built when a module is imported: the first
 call to :func:`library` builds every source once per process, one
 ``nvcc`` per source, all started together.  A failed build raises.
 
+A library is keyed by a hash of its source and of :data:`NVCC_FLAGS`,
+written beside it in ``lib<name>.so.key``.  A process that finds a
+library whose key matches loads it and runs no ``nvcc``: the ranks of a
+distributed fit load the build of the first of them (or of their
+parent), and so does a second run of the same checkout.  A changed source
+or flag rebuilds.  The build holds a lock on the directory, so processes
+that start together build once.
+
 The flags are fixed: ``sm_90a`` (Hopper: ``wgmma`` and ``setmaxnreg``
 exist only there), ``-O3``, and no ``--use_fast_math``, which may
 rewrite the ``value <= cmp`` comparisons that route NaN rows and would
@@ -22,6 +30,8 @@ PTX, without CUTLASS.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import shutil
 import subprocess
@@ -49,40 +59,61 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def source_key(src: Path) -> str:
+    """The hash a library built from ``src`` is kept under: its source and
+    the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def build_all() -> dict[str, ctypes.CDLL]:
-    """Compile every ``csrc/*.cu`` (in parallel) and load the libraries.
+    """Compile every ``csrc/*.cu`` whose library is missing or stale (in
+    parallel) and load the libraries.
 
     Each library is written under a per-process name and renamed into
-    place, so processes building at once do not clobber each other.  The
-    compiler's output (``-Xptxas -v``: registers, spills) is kept in
-    ``<name>.log`` beside the library.
+    place, then its key; the compiler's output (``-Xptxas -v``: registers,
+    spills) is kept in ``<name>.log`` beside it.
     """
     with _lock:
         if _libs:
             return _libs
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        jobs = []
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            _build_stale()
         for src in sorted(CSRC.glob("*.cu")):
-            out = BUILD_DIR / f"lib{src.stem}.so"
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs.append((src, out, tmp, proc))
-        failed = []
-        for src, out, tmp, proc in jobs:
-            log, _ = proc.communicate()
-            (BUILD_DIR / f"{src.stem}.log").write_text(log)
-            if proc.returncode != 0:
-                failed.append(f"{src.name} (nvcc exit {proc.returncode}):\n{log}")
-                continue
-            os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-        for src, out, _, _ in jobs:
-            _libs[src.stem] = ctypes.CDLL(str(out))
+            _libs[src.stem] = ctypes.CDLL(str(BUILD_DIR / f"lib{src.stem}.so"))
         return _libs
+
+
+def _build_stale() -> None:
+    """Run nvcc on every source whose library's key does not match."""
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        out = BUILD_DIR / f"lib{src.stem}.so"
+        key_file = out.with_name(f"{out.name}.key")
+        key = source_key(src)
+        if (out.exists() and key_file.exists()
+                and key_file.read_text() == key):
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, out, key_file, key, tmp, proc))
+    failed = []
+    for src, out, key_file, key, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{src.stem}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        key_file.unlink(missing_ok=True)
+        os.replace(tmp, out)
+        key_file.write_text(key)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
 
 
 def library(name: str) -> ctypes.CDLL:

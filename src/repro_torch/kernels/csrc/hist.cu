@@ -33,6 +33,14 @@
 // of the launch NaN.  Integer-valued g/h are exact as long as their sums
 // are (below 2^24), as before.
 //
+// A sum shared by several processes (the distributed trainer: each holds
+// some of the rows) passes the maxima over all of them (max_bits) and N of
+// all their rows (log2n) in place of the launch's own, and asks for the raw
+// int64 sums (raw): every process then quantises on one grid, the int64
+// sums of all processes add exactly, and the caller rounds the total once
+// (ref.from_fixed).  A non-finite g or h quantises to 0, so the raw sums of
+// a finite column do not depend on the other column.
+//
 // What bounds it on the H100: bytes.  At the training shape (n = 1M rows,
 // f = 28 features, one level) the kernel must read 112 MB of bin ids,
 // 4 MB of node ids and 8 MB of grad/hess and write a 236 KB panel: ~37 us
@@ -41,7 +49,8 @@
 // four shared-memory atomics an element, whose random bins conflict on
 // the banks, and the loop's instructions, each as much as the bin loads.
 //
-// The design.  Three launches on the caller's stream, no host sync:
+// The design.  Three launches on the caller's stream (two when raw), no
+// host sync:
 //  1. hist_prologue: per-block maxima of |g| and |h| (as float bits, whose
 //     unsigned order is the float order), and the int64 scratch and the
 //     counts zeroed;
@@ -138,7 +147,7 @@ __device__ uint2 launch_max(const unsigned* parts, int n_parts) {
 }
 
 __global__ void __launch_bounds__(kPrologueThreads)
-hist_prologue(const float2* __restrict__ gh, int64_t n,
+hist_prologue(const float2* __restrict__ gh, int64_t n,  // 0: no maxima
               unsigned* __restrict__ parts,
               unsigned long long* __restrict__ acc, int64_t acc_len,
               int* __restrict__ counts, int64_t counts_len) {
@@ -267,8 +276,8 @@ hist_kernel(const int* __restrict__ bins, const int* __restrict__ node,
       s.bin_off = row * f + f0;
       s.bucket_off = local * ft * nbins;
       s.pad = 0;
-      s.qg = __float2ll_rn(v.x * scale_g);
-      s.qh = __float2ll_rn(v.y * scale_h);
+      s.qg = isfinite(v.x) ? __float2ll_rn(v.x * scale_g) : 0ll;
+      s.qh = isfinite(v.y) ? __float2ll_rn(v.y * scale_h) : 0ll;
       ws[__popc(ballot & ((1u << lane) - 1u))] = s;
     }
     __syncwarp();
@@ -388,16 +397,24 @@ extern "C" int hist_max_parts() { return kMaxParts; }
 // same number of int64 (scratch), parts 2 * hist_max_parts() uint32
 // (scratch) and, in child mode, counts (n_levels, n_nodes, f, nbins) int32
 // (ignored in direct mode); all contiguous on the current device, none
-// zeroed by the caller.  Three launches on `stream`.  Returns the
-// cudaError_t of the launches (0 on success).
+// zeroed by the caller.  max_bits: null, or 2 uint32 on the device, the
+// float bits of the largest |g| and |h| to take in place of the launch's
+// own; log2n: -1, or the N to take in place of ceil(log2 n) (2^log2n >= n);
+// raw != 0: stop before the finalize and leave the int64 sums in acc (out
+// may then be null).  Three launches on `stream` (two when raw).  Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int hist_levels(const void* bins, const void* node_per_level,
                            const void* gh, void* out, void* acc, void* parts,
                            void* counts, int64_t n, int f, int n_levels,
-                           int n_nodes, int nbins, int child, void* stream) {
+                           int n_nodes, int nbins, int child,
+                           const void* max_bits, int log2n, int raw,
+                           void* stream) {
   const int per_node_feature = nbins * (child ? 20 : 16);
   if (n <= 0 || n > 0x7fffffffLL || f <= 0 || n_levels <= 0 ||
       n_nodes <= 0 || nbins <= 0 ||
-      per_node_feature > kPanelBytes || (child && counts == nullptr)) {
+      per_node_feature > kPanelBytes || (child && counts == nullptr) ||
+      (!raw && out == nullptr) || log2n < -1 || log2n > 62 ||
+      (log2n >= 0 && (int64_t{1} << log2n) < n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // Features a block can hold with the whole frontier; where not even one
@@ -450,8 +467,10 @@ extern "C" int hist_levels(const void* bins, const void* node_per_level,
   if (gx * f_tiles > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int log2n = 0;
-  while ((int64_t{1} << log2n) < n) ++log2n;
+  if (log2n < 0) {
+    log2n = 0;
+    while ((int64_t{1} << log2n) < n) ++log2n;
+  }
 
   const int64_t buckets = static_cast<int64_t>(n_levels) * n_nodes * f *
                           nbins;
@@ -462,9 +481,14 @@ extern "C" int hist_levels(const void* bins, const void* node_per_level,
   auto* acc64 = static_cast<unsigned long long*>(acc);
   auto* parts32 = static_cast<unsigned*>(parts);
   auto* counts32 = static_cast<int*>(counts);
+  // the maxima the scales come from: the prologue's per-block ones, or the
+  // caller's shared pair (then the prologue only zeroes)
+  const auto* max_src = max_bits ? static_cast<const unsigned*>(max_bits)
+                                 : parts32;
+  const int n_src = max_bits ? 1 : n_parts;
   hist_prologue<<<n_parts, kPrologueThreads, 0, strm>>>(
-      static_cast<const float2*>(gh), n, parts32, acc64, 2 * buckets,
-      counts32, child ? buckets : 0);
+      static_cast<const float2*>(gh), max_bits ? 0 : n, parts32, acc64,
+      2 * buckets, counts32, child ? buckets : 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -475,7 +499,7 @@ extern "C" int hist_levels(const void* bins, const void* node_per_level,
   const auto* nd = static_cast<const int*>(node_per_level);
   const auto* g = static_cast<const float2*>(gh);
 #define HIST_LAUNCH(CHILD, V)                                                \
-  launch_main<CHILD, V>(grid, smem, strm, b, nd, g, parts32, n_parts, acc64, \
+  launch_main<CHILD, V>(grid, smem, strm, b, nd, g, max_src, n_src, acc64,  \
                         counts32, n, f, n_nodes, nbins, f_tile, f_tiles,     \
                         node_chunk, n_chunks, log2n, rows_per_block)
   if (child) {
@@ -486,12 +510,12 @@ extern "C" int hist_levels(const void* bins, const void* node_per_level,
         : vec == 2 ? HIST_LAUNCH(false, 2) : HIST_LAUNCH(false, 1);
   }
 #undef HIST_LAUNCH
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || raw) return static_cast<int>(err);
 
   const int64_t fin_blocks = std::min<int64_t>(
       (buckets + kFinalizeThreads - 1) / kFinalizeThreads, 8 * sms);
   hist_finalize<<<static_cast<unsigned>(fin_blocks), kFinalizeThreads, 0,
-                  strm>>>(static_cast<const long long*>(acc), parts32,
-                          n_parts, static_cast<float2*>(out), buckets, log2n);
+                  strm>>>(static_cast<const long long*>(acc), max_src,
+                          n_src, static_cast<float2*>(out), buckets, log2n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,13 @@ atomics, so two launches on the same inputs return the same bits.  It
 lies within ``ref.hist_rounding_bound(..., quantum=ref.hist_quanta(gh))``
 of the plain version.
 
+A sum shared by several processes (the distributed trainer) passes the
+maxima of |g| and |h| over all of them and ``N = ceil(log2 n)`` of all
+their rows (``bits``, ``log2n``; see ``ref.hist_shifts``) and asks for
+the ``raw`` int64 sums, which the processes add exactly before one
+rounding (``ref.from_fixed``).  Given the same arguments the kernel is
+bit for bit ``ref.hist_levels_fixed``.
+
 ``launches`` counts this process's direct-mode launches and
 ``left_launches`` its child-mode launches; a run reads them to show that
 its histograms went through the kernel.
@@ -39,7 +46,8 @@ def _lib():
         lib = _build.library("hist")
         fn = lib.hist_levels
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         for name in ("hist_panel_bytes", "hist_max_parts"):
             getattr(lib, name).argtypes = []
@@ -51,10 +59,13 @@ def _lib():
 
 
 def _launch(bins: torch.Tensor, node_per_level: torch.Tensor,
-            gh: torch.Tensor, *, n_nodes: int, nbins: int, child: bool):
+            gh: torch.Tensor, *, n_nodes: int, nbins: int, child: bool,
+            bits: torch.Tensor | None, log2n: int | None, raw: bool):
     global launches, left_launches
     name = "hist_levels_left_cuda" if child else "hist_levels_cuda"
     tensors = {"bins": bins, "node_per_level": node_per_level, "gh": gh}
+    if bits is not None:
+        tensors["bits"] = bits
     for key, t in tensors.items():
         if t.device.type != "cuda" or t.device != bins.device:
             raise ValueError(f"{name}: {key} is on {t.device}; every tensor "
@@ -67,6 +78,10 @@ def _launch(bins: torch.Tensor, node_per_level: torch.Tensor,
                         f"{bins.dtype} / {node_per_level.dtype}")
     if gh.dtype != torch.float32:
         raise TypeError(f"{name}: gh must be float32, got {gh.dtype}")
+    if bits is not None and (bits.dtype != torch.int32
+                             or tuple(bits.shape) != (2,)):
+        raise TypeError(f"{name}: bits must be (2,) int32, got "
+                        f"{tuple(bits.shape)} {bits.dtype}")
     if bins.ndim != 2 or node_per_level.ndim != 2:
         raise ValueError(f"{name}: bins and node_per_level must be 2-D")
     n, f = bins.shape
@@ -81,6 +96,9 @@ def _launch(bins: torch.Tensor, node_per_level: torch.Tensor,
     if n >= 2 ** 31:
         raise ValueError(f"{name}: {n} rows; the kernel takes fewer than "
                          "2^31")
+    if log2n is not None and not (0 <= log2n <= 62 and 2 ** log2n >= n):
+        raise ValueError(f"{name}: log2n={log2n} must lie in [0, 62] with "
+                         f"2^log2n >= n = {n}")
     fns = _lib()
     bucket_bytes = 20 if child else 16
     if nbins * bucket_bytes > fns["panel_bytes"]:
@@ -90,22 +108,27 @@ def _launch(bins: torch.Tensor, node_per_level: torch.Tensor,
         raise ValueError(f"{name}: gh is not 8-byte aligned")
     shape = (L, n_nodes, f, nbins)
     dev = bins.device
+    out_dtype = torch.int64 if raw else torch.float32
     if not (n and f and L):                 # nothing to add: no launch
-        out = torch.zeros(shape + (2,), dtype=torch.float32, device=dev)
+        out = torch.zeros(shape + (2,), dtype=out_dtype, device=dev)
         cnt = torch.zeros(shape, dtype=torch.int32, device=dev)
         return (out, cnt) if child else out
-    # the kernel writes every entry of out and cnt, and zeroes its scratch
-    out = torch.empty(shape + (2,), dtype=torch.float32, device=dev)
+    # the kernel writes every entry of out (of acc when raw) and cnt, and
+    # zeroes its scratch
+    acc = torch.empty(shape + (2,), dtype=torch.int64, device=dev)
+    out = acc if raw else torch.empty(shape + (2,), dtype=torch.float32,
+                                      device=dev)
     cnt = torch.empty(shape, dtype=torch.int32, device=dev) if child else None
-    acc = torch.empty(out.shape, dtype=torch.int64, device=dev)
     parts = torch.empty(2 * fns["max_parts"], dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fns["hist_levels"](
             bins.data_ptr(), node_per_level.data_ptr(), gh.data_ptr(),
-            out.data_ptr(), acc.data_ptr(), parts.data_ptr(),
-            cnt.data_ptr() if child else None, n, f, L, n_nodes, nbins,
-            int(child), stream)
+            None if raw else out.data_ptr(), acc.data_ptr(),
+            parts.data_ptr(), cnt.data_ptr() if child else None, n, f, L,
+            n_nodes, nbins, int(child),
+            None if bits is None else bits.data_ptr(),
+            -1 if log2n is None else log2n, int(raw), stream)
     if err != 0:
         raise RuntimeError(f"hist kernel launch failed ({name}, L={L}, "
                            f"n_nodes={n_nodes}, f={f}, nbins={nbins}): "
@@ -118,36 +141,45 @@ def _launch(bins: torch.Tensor, node_per_level: torch.Tensor,
 
 
 def hist_levels_cuda(bins: torch.Tensor, node_per_level: torch.Tensor,
-                     gh: torch.Tensor, *, n_nodes: int,
-                     nbins: int) -> torch.Tensor:
+                     gh: torch.Tensor, *, n_nodes: int, nbins: int,
+                     bits: torch.Tensor | None = None,
+                     log2n: int | None = None,
+                     raw: bool = False) -> torch.Tensor:
     """Grad/hess sums per (level, node, feature, bin) in one launch.
 
     Same arguments as :func:`repro_torch.kernels.ref.hist_levels_ref`:
     bins (n, f) int32, node_per_level (L, n) int32 (negative = masked),
-    gh (n, 2) float32, all contiguous on one CUDA device.  Returns
-    (L, n_nodes, f, nbins, 2) float32, bit for bit
-    :func:`repro_torch.kernels.ref.hist_levels_fixed`.
+    gh (n, 2) float32, all contiguous on one CUDA device; optionally a
+    shared grid, ``bits`` ((2,) int32 on the device, ``ref.max_bits`` of
+    all the rows) and ``log2n``, and ``raw``.  Returns (L, n_nodes, f,
+    nbins, 2) float32 (int64 sums with ``raw``), bit for bit
+    :func:`repro_torch.kernels.ref.hist_levels_fixed` with the same
+    arguments.
     """
     return _launch(bins, node_per_level, gh, n_nodes=n_nodes, nbins=nbins,
-                   child=False)
+                   child=False, bits=bits, log2n=log2n, raw=raw)
 
 
 def hist_levels_left_cuda(bins: torch.Tensor, node_per_level: torch.Tensor,
-                          gh: torch.Tensor, *, n_nodes: int,
-                          nbins: int) -> tuple[torch.Tensor, torch.Tensor]:
+                          gh: torch.Tensor, *, n_nodes: int, nbins: int,
+                          bits: torch.Tensor | None = None,
+                          log2n: int | None = None,
+                          raw: bool = False
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Subtraction child mode of :func:`hist_levels_cuda`: only rows with
     an even CHILD id add, into parent bucket ``id >> 1`` of an
     ``n_nodes``-parent panel (:func:`repro_torch.kernels.ref.
     hist_levels_left_ref`); rows routed right read no bin ids.  The same
     launch also counts the rows of each bucket, exactly.  Bit for bit
-    ``ref.hist_levels_fixed(..., child=True)``.
+    ``ref.hist_levels_fixed(..., child=True)`` with the same ``bits``,
+    ``log2n`` and ``raw``.
 
     Returns:
-      ((L, n_nodes, f, nbins, 2) float32 sums, (L, n_nodes, f, nbins)
-      int32 row counts).
+      ((L, n_nodes, f, nbins, 2) float32 sums (int64 with ``raw``),
+      (L, n_nodes, f, nbins) int32 row counts).
     """
     return _launch(bins, node_per_level, gh, n_nodes=n_nodes, nbins=nbins,
-                   child=True)
+                   child=True, bits=bits, log2n=log2n, raw=raw)
 
 
 def hist_cuda(bins: torch.Tensor, node: torch.Tensor, gh: torch.Tensor, *,

@@ -145,6 +145,32 @@ def hist_levels(bins: torch.Tensor, node_per_level: torch.Tensor,
     return fn(bins, node_per_level, gh, **kw)
 
 
+def hist_levels_raw(bins: torch.Tensor, node_per_level: torch.Tensor,
+                    gh: torch.Tensor, spec: HistSpec, *, bits: torch.Tensor,
+                    log2n: int):
+    """:func:`hist_levels` as unrounded int64 fixed-point sums on a given
+    grid: ``bits`` ((2,) int32, ``ref.max_bits`` of every row of the sum)
+    and ``log2n`` (``ceil(log2)`` of their count) set the shift in place of
+    this call's own rows.  Several processes that each hold some of the
+    rows add their results exactly and round the total once
+    (``ref.from_fixed``), which gives the bits that one call over all the
+    rows gives.
+
+    On the card one launch of the histogram kernel that stops before its
+    finalize; on the CPU its plain version, ``ref.hist_levels_fixed(...,
+    raw=True)``.  The same bits on both.  Child mode (``spec.subtract``)
+    returns the row counts beside the sums, as :func:`hist_levels` does.
+    """
+    kw = dict(n_nodes=spec.n_nodes, nbins=spec.nbins, bits=bits,
+              log2n=log2n, raw=True)
+    if resolve(spec.backend, bins.device) == "cuda":
+        fn = hist.hist_levels_left_cuda if spec.subtract \
+            else hist.hist_levels_cuda
+        return fn(bins, node_per_level, gh, **kw)
+    return ref.hist_levels_fixed(bins, node_per_level, gh,
+                                 child=spec.subtract, **kw)
+
+
 def leaf_sums(node: torch.Tensor, gh: torch.Tensor, n_leaves: int,
               backend: str = "auto") -> torch.Tensor:
     """(n_leaves, 2) float32 grad/hess totals of the rows of each leaf.

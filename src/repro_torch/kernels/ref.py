@@ -214,7 +214,28 @@ def _pow2(k: torch.Tensor) -> torch.Tensor:
     return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
-def hist_shifts(gh: torch.Tensor) -> torch.Tensor:
+def log2_ceil(n: int) -> int:
+    """``N = ceil(log2 n)`` (0 for n <= 1): the smallest ``N`` with
+    ``2^N >= n``."""
+    return (n - 1).bit_length() if n > 1 else 0
+
+
+def max_bits(gh: torch.Tensor) -> torch.Tensor:
+    """(2,) int32: the float32 bits of the largest |g| and of the largest
+    |h| over the rows of ``gh`` (n, 2), computed where ``gh`` lies.  The
+    order of these bits is the order of the values; a column with a NaN
+    or an infinity has bits at or above ``NONFINITE_BITS``.  Zero rows
+    give 0."""
+    if not gh.shape[0]:
+        return torch.zeros(2, dtype=torch.int32, device=gh.device)
+    return gh.to(torch.float32).abs().view(torch.int32).amax(0)
+
+
+NONFINITE_BITS = 0x7F800000   # max_bits at or above this: inf or NaN
+
+
+def hist_shifts(gh: torch.Tensor, *, bits: torch.Tensor | None = None,
+                log2n: int | None = None) -> torch.Tensor:
     """(2,) int32: the shift ``s`` of g and of h for a sum over the rows
     of ``gh`` (n, 2), computed where ``gh`` lies, with no host sync.
 
@@ -223,12 +244,20 @@ def hist_shifts(gh: torch.Tensor) -> torch.Tensor:
     1), ``s = min(62 - N - E, 100)``: each ``x`` becomes the integer
     ``rint(x * 2^s)``, of magnitude at most ``2^(E+s)``, and a sum of at
     most ``n`` of them stays within ``n * 2^(E+s) <= 2^62``.
+
+    ``bits`` (:func:`max_bits`) and ``log2n`` replace this launch's own
+    maxima and ``N``: a sum shared by several processes, each holding
+    some of the rows, takes the maxima over all of them and ``N`` of all
+    their rows, so that every process quantises on one grid.
     """
-    n = gh.shape[0]
-    log2n = (n - 1).bit_length() if n > 1 else 0
-    # |x| as float bits: their order is the float order (NaN, inf last)
-    bits = (gh.to(torch.float32).abs().view(torch.int32).amax(0) if n else
-            torch.zeros(2, dtype=torch.int32, device=gh.device))
+    if bits is None:
+        bits = max_bits(gh)
+    if log2n is None:
+        log2n = log2_ceil(gh.shape[0])
+    return _shifts(bits, log2n)
+
+
+def _shifts(bits: torch.Tensor, log2n: int) -> torch.Tensor:
     e = ((bits >> 23) & 0xFF).clamp(min=1) - 126
     return (FIXED_POINT_BITS - log2n - e).clamp(max=MAX_SHIFT).to(torch.int32)
 
@@ -239,65 +268,85 @@ def hist_quanta(gh: torch.Tensor) -> torch.Tensor:
     return _pow2(-hist_shifts(gh))
 
 
-def _to_fixed(gh: torch.Tensor):
-    """(q, quantum, finite): ``gh`` (n, 2) as int64 multiples of each
-    column's quantum (round to nearest even), the (2,) quanta, and whether
-    each column is finite in every row."""
+def _to_fixed(gh: torch.Tensor, bits: torch.Tensor,
+              log2n: int) -> torch.Tensor:
+    """``gh`` (n, 2) as int64 multiples of each column's quantum (round to
+    nearest even); a non-finite entry becomes 0 (its column's sums are
+    NaN in :func:`from_fixed`)."""
     gh = gh.to(torch.float32)
-    s = hist_shifts(gh)
-    finite = torch.isfinite(gh).all(0)
+    s = _shifts(bits, log2n)
     q = torch.round(torch.where(torch.isfinite(gh), gh, 0.0) * _pow2(s))
-    return q.to(torch.int64), _pow2(-s), finite
+    return q.to(torch.int64)
 
 
-def _from_fixed(total: torch.Tensor, quantum: torch.Tensor,
-                finite: torch.Tensor) -> torch.Tensor:
-    """int64 sums (..., 2) -> float32: one rounding to float32, times the
-    quantum (exact); NaN in a column with a non-finite row."""
-    out = total.to(torch.float32) * quantum
-    return torch.where(finite, out, float("nan"))
+def from_fixed(total: torch.Tensor, bits: torch.Tensor,
+               log2n: int) -> torch.Tensor:
+    """int64 sums (..., 2) on the grid of ``bits`` and ``log2n``
+    (:func:`hist_shifts`) -> float32: one rounding to float32, times the
+    quantum (exact); NaN in a column whose ``bits`` are non-finite."""
+    out = total.to(torch.float32) * _pow2(-_shifts(bits, log2n))
+    return torch.where(bits < NONFINITE_BITS, out, float("nan"))
 
 
-def fixed_point_sums(index: torch.Tensor, gh: torch.Tensor,
-                     size: int) -> torch.Tensor:
+def fixed_point_sums(index: torch.Tensor, gh: torch.Tensor, size: int, *,
+                     bits: torch.Tensor | None = None,
+                     log2n: int | None = None,
+                     raw: bool = False) -> torch.Tensor:
     """(size, 2) float32: the rows of ``gh`` (n, 2) summed by ``index``
     (n,), in fixed point (:func:`hist_shifts`).  The same in any order of
     adds, on any device.  A non-finite value in a column makes that
-    column NaN."""
-    q, quantum, finite = _to_fixed(gh)
+    column NaN.
+
+    ``bits`` and ``log2n`` give a shared grid (:func:`hist_shifts`); with
+    ``raw`` the int64 sums on that grid are returned as they are, for the
+    caller to add to other processes' sums and finish with
+    :func:`from_fixed`.
+    """
+    if bits is None:
+        bits = max_bits(gh)
+    if log2n is None:
+        log2n = log2_ceil(gh.shape[0])
     total = torch.zeros((size, 2), dtype=torch.int64, device=gh.device)
-    total.index_add_(0, index.long(), q)
-    return _from_fixed(total, quantum, finite)
+    total.index_add_(0, index.long(), _to_fixed(gh, bits, log2n))
+    return total if raw else from_fixed(total, bits, log2n)
 
 
 def hist_levels_fixed(bins: torch.Tensor, node_per_level: torch.Tensor,
                       gh: torch.Tensor, *, n_nodes: int, nbins: int,
-                      child: bool = False):
+                      child: bool = False, bits: torch.Tensor | None = None,
+                      log2n: int | None = None, raw: bool = False):
     """The CUDA kernel's arithmetic in plain PyTorch: its result bit for
     bit, on any device.
 
     Each column of ``gh`` becomes int64 multiples of its launch-wide
-    quantum (:func:`hist_shifts`, from all ``n`` rows); the buckets sum
-    them with an int64 ``index_add_``; each sum is rounded once to float32
-    and scaled by the quantum.  A non-finite g (or h) in any row makes every
+    quantum (:func:`hist_shifts`, from all ``n`` rows, or from the shared
+    ``bits`` and ``log2n``); the buckets sum them with an int64
+    ``index_add_``; each sum is rounded once to float32 and scaled by the
+    quantum.  A non-finite g (or h) in any row (or in ``bits``) makes every
     g (or h) sum NaN.  The buckets and the rows that drop out are those of
     :func:`hist_levels_ref` (direct) or :func:`hist_levels_left_ref`
-    (``child``).
+    (``child``).  With ``raw`` the int64 sums are returned unrounded, as
+    the kernel leaves them when asked to stop before its finalize.
 
     Returns:
-      (L, n_nodes, f, nbins, 2) float32; with ``child``, also the
-      (L, n_nodes, f, nbins) int32 row counts.
+      (L, n_nodes, f, nbins, 2) float32 (int64 with ``raw``); with
+      ``child``, also the (L, n_nodes, f, nbins) int32 row counts.
     """
     node = _parent_ids(node_per_level) if child else node_per_level
     L, n = node.shape
     f = bins.shape[1]
+    if bits is None:
+        bits = max_bits(gh)
+    if log2n is None:
+        log2n = log2_ceil(n)
     key, valid = _bucket_keys(bins, node, n_nodes, nbins)
-    q, quantum, finite = _to_fixed(gh)
+    q = _to_fixed(gh, bits, log2n)
     total = torch.zeros((L * n_nodes * f * nbins, 2), dtype=torch.int64,
                         device=bins.device)
     total.index_add_(0, key[valid], q[None, :, None, :].expand(
         L, n, f, 2)[valid])
-    out = _from_fixed(total, quantum, finite).reshape(L, n_nodes, f, nbins, 2)
+    total = total.reshape(L, n_nodes, f, nbins, 2)
+    out = total if raw else from_fixed(total, bits, log2n)
     if not child:
         return out
     keys = key[valid]

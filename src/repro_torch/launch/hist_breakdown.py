@@ -76,7 +76,8 @@ def build() -> dict:
             raise RuntimeError(f"hist_breakdown: {name} did not build:\n{log}")
         fn = ctypes.CDLL(str(lib)).hist_levels
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -92,7 +93,7 @@ def launch(fn, bins, node, gh, *, n_nodes, child):
     cnt = torch.empty(shape, dtype=torch.int32, device=bins.device)
     err = fn(bins.data_ptr(), node.data_ptr(), gh.data_ptr(), out.data_ptr(),
              acc.data_ptr(), parts.data_ptr(), cnt.data_ptr(), n, f,
-             node.shape[0], n_nodes, NBINS, int(child),
+             node.shape[0], n_nodes, NBINS, int(child), None, -1, 0,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"hist_breakdown: launch failed, cudaError_t {err}")

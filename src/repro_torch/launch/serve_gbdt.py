@@ -10,13 +10,18 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_gbdt \
       --trees 500 --depth 6 --features 32 --microbatch 4096 \
       --requests 32 --device cuda [--binned] [--ckpt model.npz] \
-      [--json predict_report.json]
+      [--data-shards N] [--json predict_report.json]
 
 With ``--ckpt`` the model comes from :func:`repro_torch.checkpoint.
 load_gbdt` (a checkpoint of either package); otherwise a synthetic
 forest of the requested shape is built.  ``--device`` defaults to
 ``cuda`` and raises where there is no GPU; pass ``--device cpu`` to run
 the plain PyTorch path.
+
+``--data-shards N`` serves from N ranks (:mod:`repro_torch.launch.
+distributed`): each rank predicts its slice of the rows of every
+microbatch and the margins are gathered in rank order.  The traversal is
+row-wise, so the margins are bit-identical to unsharded serving.
 """
 
 from __future__ import annotations
@@ -26,11 +31,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import load_gbdt, model_from_numpy
 from ..core import boosting
 from ..core.predict import DEFAULT_TREE_CHUNK
 from ..obs import PredictReport
+from . import distributed as dist_lib
 
 
 def synthetic_gbdt(*, n_trees: int, max_depth: int, n_features: int,
@@ -71,28 +78,63 @@ def synthetic_gbdt(*, n_trees: int, max_depth: int, n_features: int,
     return model_from_numpy(arrays, cfg, 0.0, device)
 
 
+def request_batches(model: boosting.GBDTModel, *, microbatch: int,
+                    n_requests: int, seed: int) -> list[np.ndarray]:
+    """The host microbatches :func:`serve` sends, from ``seed``."""
+    n_features = (model.bin_edges.shape[0] if model.bin_edges is not None
+                  else int(model.forest.feature.max()) + 1)
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(microbatch, n_features)).astype(np.float32)
+            for _ in range(n_requests)]
+
+
+def shard_predict(model: boosting.GBDTModel, x, *, group=None,
+                  **predict_kw) -> torch.Tensor:
+    """``model.predict(x, **predict_kw)`` from every rank of ``group``:
+    rank r predicts the r-th slice of the rows, and the results are
+    gathered in rank order, so every rank returns all of them."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n = x.shape[0]
+    per = -(-n // world)
+    part = model.predict(x[rank * per:(rank + 1) * per], **predict_kw)
+    part = torch.nn.functional.pad(part, (0, per - part.shape[0]))
+    return torch.cat(dist_lib.all_gather(part, group))[:n]
+
+
 def serve(model: boosting.GBDTModel, *, microbatch: int = 4096,
           n_requests: int = 32, binned: bool = False,
           backend: str | None = None, tree_chunk: int | None = None,
-          seed: int = 0, output: str = "margin") -> PredictReport:
+          data_shards: int = 0, seed: int = 0,
+          output: str = "margin") -> PredictReport:
     """Run the microbatched serving loop and return its telemetry.
 
     Each request takes a host (numpy) microbatch to the model's device,
     predicts (binning it first when ``binned``) and waits for the result.
     The first microbatch is served twice before timing starts, which
     builds the kernels at their first use outside the timed loop.
+
+    With ``data_shards`` every rank of the default group (of that many
+    ranks) calls this, and each request is :func:`shard_predict`.
     """
     cfg = model.config
-    n_features = (model.bin_edges.shape[0] if model.bin_edges is not None
-                  else int(model.forest.feature.max()) + 1)
-    rng = np.random.default_rng(seed)
-    batches = [rng.normal(size=(microbatch, n_features)).astype(np.float32)
-               for _ in range(n_requests)]
+    batches = request_batches(model, microbatch=microbatch,
+                              n_requests=n_requests, seed=seed)
+    n_features = batches[0].shape[1]
     on_cuda = model.device.type == "cuda"
+    kw = dict(output=output, binned=binned, backend=backend,
+              tree_chunk=tree_chunk)
+    if data_shards:
+        world = dist.get_world_size() if dist.is_initialized() else 0
+        if world != data_shards:
+            raise ValueError(f"data_shards={data_shards} needs a group of "
+                             f"that many ranks (found {world}); start them "
+                             "with launch.distributed.run")
+        predict = lambda xb: shard_predict(model, xb, **kw)   # noqa: E731
+    else:
+        predict = lambda xb: model.predict(xb, **kw)          # noqa: E731
 
     def request(xb: np.ndarray) -> None:
-        model.predict(xb, output=output, binned=binned, backend=backend,
-                      tree_chunk=tree_chunk)
+        predict(xb)
         if on_cuda:
             torch.cuda.synchronize(model.device)
 
@@ -112,8 +154,23 @@ def serve(model: boosting.GBDTModel, *, microbatch: int = 4096,
             "n_features": int(n_features),
             "tree_chunk": tree_chunk or DEFAULT_TREE_CHUNK,
             "backend": backend or cfg.backend, "binned": bool(binned),
-            "device": str(model.device),
+            "data_shards": int(data_shards), "device": str(model.device),
         })
+
+
+def _model(args) -> boosting.GBDTModel:
+    if args.ckpt:
+        return load_gbdt(args.ckpt, device=args.device)
+    return synthetic_gbdt(n_trees=args.trees, max_depth=args.depth,
+                          n_features=args.features,
+                          n_candidates=args.candidates, device=args.device)
+
+
+def _serve(args) -> PredictReport:
+    return serve(_model(args), microbatch=args.microbatch,
+                 n_requests=args.requests, binned=args.binned,
+                 backend=args.backend, tree_chunk=args.tree_chunk,
+                 data_shards=args.data_shards, output=args.output)
 
 
 def main(argv=None) -> PredictReport:
@@ -135,29 +192,26 @@ def main(argv=None) -> PredictReport:
                         "launch")
     p.add_argument("--binned", action="store_true",
                    help="traverse on bin ids (binning timed per request)")
+    p.add_argument("--data-shards", type=int, default=0,
+                   help="serve from this many ranks, each predicting its "
+                        "slice of every microbatch")
     p.add_argument("--output", default="margin",
                    choices=["margin", "proba", "label"])
     p.add_argument("--json", default=None,
                    help="write the PredictReport JSON here")
     args = p.parse_args(argv)
 
-    if args.ckpt:
-        model = load_gbdt(args.ckpt, device=args.device)
+    if args.data_shards:
+        report = dist_lib.run(_serve, args.data_shards, args,
+                              device=args.device)
     else:
-        model = synthetic_gbdt(n_trees=args.trees, max_depth=args.depth,
-                               n_features=args.features,
-                               n_candidates=args.candidates,
-                               device=args.device)
-
-    report = serve(model, microbatch=args.microbatch,
-                   n_requests=args.requests, binned=args.binned,
-                   backend=args.backend, tree_chunk=args.tree_chunk,
-                   output=args.output)
+        report = _serve(args)
     s = report.summarize()
     print(f"[serve_gbdt] {report.engine['n_trees']} trees x depth "
           f"{report.engine['max_depth']} | {s['rows_per_request']} rows/req "
           f"x {s['n_requests']} req | device={report.engine['device']} "
           f"backend={report.engine['backend']}"
+          f"{' data_shards=%d' % args.data_shards if args.data_shards else ''}"
           f"{' binned' if report.engine['binned'] else ''}", flush=True)
     print(f"[serve_gbdt] {s['rows_per_s']:,.0f} rows/s | p50 "
           f"{s['latency_ms']['p50']:.2f} ms | p99 "

@@ -115,12 +115,19 @@ class TrainReport(NamedTuple):
 
 
 def mean_train_loss(margin: torch.Tensor, y: torch.Tensor,
-                    objective: str) -> torch.Tensor:
+                    objective: str, *, weight: torch.Tensor | None = None,
+                    n_global: int | None = None,
+                    psum=None) -> torch.Tensor:
     """Mean train loss of ``margin`` against ``y``, a 0-d tensor.
 
     The logistic loss is ``softplus(m) - y * m`` with softplus as the JAX
     package computes it, ``logaddexp(m, 0)``; ``torch.nn.functional.
     softplus`` returns ``m`` itself above its threshold of 20.
+
+    The distributed trainer's arguments, as in the JAX package: ``weight``
+    masks rows out of the sum (padding), ``psum`` sums a tensor over the
+    group, and ``n_global`` is the true row count of all the ranks.  By
+    default the mean is this process's, over its rows.
     """
     if objective == "logistic":
         per_row = torch.logaddexp(margin, torch.zeros_like(margin)) \
@@ -129,33 +136,52 @@ def mean_train_loss(margin: torch.Tensor, y: torch.Tensor,
         per_row = 0.5 * (margin - y) ** 2
     else:
         raise ValueError(f"unknown objective {objective!r}")
-    return per_row.sum() / margin.shape[0]
+    if weight is not None:
+        per_row = per_row * weight
+    total = per_row.sum()
+    if psum is not None:
+        total = psum(total)
+    return total / (margin.shape[0] if n_global is None else n_global)
 
 
-def round_report(*, margin, y, g, h, objective: str, stats) -> TrainReport:
+def round_report(*, margin, y, g, h, objective: str, stats,
+                 n_global: int | None = None, weight=None,
+                 psum=None) -> TrainReport:
     """Build one round's TrainReport row (all 0-d tensors).
 
     Args:
       margin: post-update margin (the round's loss is measured after its
         tree is applied).
-      g, h: the grad/hess panel the round's tree was built from.
+      g, h: the grad/hess panel the round's tree was built from (already
+        masked by ``weight`` in the distributed trainer).
       stats: :class:`repro_torch.core.tree.TreeStats` from ``build_tree``.
+      n_global, weight, psum: the distributed trainer's, as in
+        :func:`mean_train_loss`; the squared norms and the histogram
+        updates are summed over the group too, so every rank holds the
+        same row.
 
-    The collective-byte fields are zero on a single host.
+    The collective-byte fields are zero here; the distributed trainer
+    fills them in from :func:`collective_bytes_per_round`.
     """
+    sq_g, sq_h = (g * g).sum(), (h * h).sum()
+    upd = stats.hist_updates
+    if psum is not None:
+        sq_g, sq_h, upd = psum(sq_g), psum(sq_h), psum(upd)
+    loss = mean_train_loss(margin, y, objective, weight=weight,
+                           n_global=n_global, psum=psum)
     mean_gain = stats.gain_sum / stats.n_splits.to(torch.float32).clamp_min(
         1.0)
     zero = torch.zeros((), dtype=torch.float32, device=margin.device)
     return TrainReport(
-        train_loss=mean_train_loss(margin, y, objective).to(torch.float32),
-        grad_norm=torch.sqrt((g * g).sum()).to(torch.float32),
-        hess_norm=torch.sqrt((h * h).sum()).to(torch.float32),
+        train_loss=loss.to(torch.float32),
+        grad_norm=torch.sqrt(sq_g).to(torch.float32),
+        hess_norm=torch.sqrt(sq_h).to(torch.float32),
         n_splits=stats.n_splits.to(torch.int32),
         best_gain_max=stats.gain_max.to(torch.float32),
         best_gain_mean=mean_gain.to(torch.float32),
         all_gather_bytes=zero,
         psum_bytes=zero,
-        hist_updates=stats.hist_updates.to(torch.float32),
+        hist_updates=upd.to(torch.float32),
     )
 
 
@@ -180,6 +206,13 @@ def collective_bytes_per_round(cfg, n_features: int, n_workers: int,
 
     With ``repropose_each_round=False`` the proposal collectives only
     happen in round 0.
+
+    This is the JAX package's estimate (``dtype_bytes=4``: float32
+    panels), kept for parity.  On the card the port's histogram crosses
+    as int64 sums and int32 counts instead (fixed point, see
+    ``core/distributed.py``), and on the CPU as an all-gather of every
+    rank's panel; ``launch.distributed.collective_bytes`` counts what
+    really passes.
 
     Returns:
       ``(all_gather_bytes, psum_bytes)``: two ``(n_trees,)`` float32

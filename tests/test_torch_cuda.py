@@ -24,6 +24,14 @@ weighted-quantile and uniform-range grids are the CPU port's bit for bit
 (any NaN equal to any NaN), a small fit per strategy meets the forest
 contract against the CPU, and telemetry and ``fit_reference`` leave the
 forest as it is.
+
+The distributed trainer: the histogram kernel on a grid shared with
+other ranks (``bits``, ``log2n``) and with raw int64 sums is
+``torch.equal`` to ``ref.hist_levels_fixed`` given the same, and raw sums
+of parts of the rows add up to one launch's; a fit on 2 ranks (gloo over
+CUDA tensors) equals the fit on 1 (NCCL) in every field; sharded serving
+gives the unsharded margins.  The ranks are started by
+``launch.distributed.run`` from functions at the top of this file.
 """
 
 import dataclasses
@@ -359,6 +367,122 @@ def test_hist_kernel_non_finite_gh(cuda, child):
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
         assert bool(torch.isnan(got[..., col]).all())
         assert not bool(torch.isfinite(base[..., col]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("child", [False, True], ids=["direct", "left"])
+def test_hist_kernel_shared_grid_and_raw_sums(cuda, child):
+    """A grid shared with other processes (``bits`` of a larger maximum
+    than the launch's own, ``log2n`` of more rows) and the raw int64 sums:
+    bit for bit ``ref.hist_levels_fixed`` given the same, finalized or
+    raw, counts too; a shared non-finite maximum makes that column NaN
+    and leaves the raw sums of the finite column as they are."""
+    rng = np.random.default_rng(17)
+    kernel = hist.hist_levels_left_cuda if child else hist.hist_levels_cuda
+    for n, f, nbins, n_nodes, L in HIST_SHAPES:
+        bins, node, gh = (torch.from_numpy(a).to(cuda) for a in _hist_case(
+            rng, n=n, f=f, nbins=nbins, n_nodes=n_nodes, L=L, child=child,
+            integer=False))
+        own = ref.max_bits(gh)
+        grids = [(own, ref.log2_ceil(n)),
+                 (ref.max_bits(4 * gh), ref.log2_ceil(n) + 3),
+                 (torch.stack([own[0], torch.tensor(
+                     ref.NONFINITE_BITS + 0x400000, device=cuda,
+                     dtype=torch.int32)]), ref.log2_ceil(n) + 1)]
+        for bits, log2n in grids:
+            for raw in (False, True):
+                kw = dict(n_nodes=n_nodes, nbins=nbins, bits=bits,
+                          log2n=log2n, raw=raw)
+                got = kernel(bins, node, gh, **kw)
+                want = ref.hist_levels_fixed(bins, node, gh, child=child,
+                                             **kw)
+                torch.cuda.synchronize()
+                if child:
+                    assert torch.equal(got[1], want[1])
+                    got, want = got[0], want[0]
+                assert got.dtype == (torch.int64 if raw else torch.float32)
+                torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                           equal_nan=True)
+        # the raw sums of all rows, split in two launches on one grid,
+        # add up to one launch's
+        bits, log2n = ref.max_bits(gh), ref.log2_ceil(n)
+        half = n // 2
+        kw = dict(n_nodes=n_nodes, nbins=nbins, bits=bits, log2n=log2n,
+                  raw=True)
+        parts = [kernel(bins[s].contiguous(), node[:, s].contiguous(),
+                        gh[s].contiguous(), **kw)
+                 for s in (slice(0, half), slice(half, n)) if s.stop > s.start]
+        whole = kernel(bins, node, gh, **kw)
+        if child:
+            assert torch.equal(sum(p[1] for p in parts), whole[1])
+            parts, whole = [p[0] for p in parts], whole[0]
+        assert torch.equal(sum(parts), whole)
+
+
+@pytest.mark.cuda
+def test_hist_kernel_rejects_a_grid_it_cannot_hold(cuda):
+    bins = torch.zeros((8, 2), dtype=torch.int32, device=cuda)
+    node = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    gh = torch.ones((8, 2), device=cuda)
+    bits = ref.max_bits(gh)
+    with pytest.raises(ValueError, match="log2n"):     # 2^2 < 8 rows
+        hist.hist_levels_cuda(bins, node, gh, n_nodes=1, nbins=4, bits=bits,
+                              log2n=2)
+    with pytest.raises(TypeError, match="bits"):
+        hist.hist_levels_cuda(bins, node, gh, n_nodes=1, nbins=4,
+                              bits=bits.long(), log2n=3)
+    with pytest.raises(ValueError, match="bits"):
+        hist.hist_levels_cuda(bins, node, gh, n_nodes=1, nbins=4,
+                              bits=bits.cpu(), log2n=3)
+
+
+def _distributed_fit_rank(x, y, cfg):
+    """One rank of a distributed fit on the card (run by ``run``)."""
+    from repro_torch import fit_distributed
+    return fit_distributed(x, y, cfg, device="cuda").to("cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subtract", [False, True])
+def test_distributed_fit_is_the_same_at_every_world_size(cuda, subtract):
+    """uniform_range on 2 ranks (gloo over CUDA tensors) and on 1 (NCCL):
+    every forest field equal (a shared fixed-point grid, int64 sums
+    all-reduced); against the single-card fit, structure exact and leaves
+    within 1e-4 (tests/test_distributed.py's bound; the base score is
+    float32 here, float64 there)."""
+    from repro_torch.launch import distributed as dist_lib
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4001, 6)).astype(np.float32)
+    y = (x @ rng.normal(size=6) > 0).astype(np.float32)
+    cfg = GBDTConfig(n_trees=4, max_depth=4, n_candidates=16,
+                     strategy="uniform_range", subtract=subtract)
+    one = dist_lib.run(_distributed_fit_rank, 1, x, y, cfg, device="cuda")
+    two = dist_lib.run(_distributed_fit_rank, 2, x, y, cfg, device="cuda")
+    for field, a, b in zip(one.forest._fields, one.forest, two.forest):
+        assert torch.equal(a, b), field
+    single = fit(x, y, cfg, device="cuda").forest
+    assert torch.equal(single.feature.cpu(), one.forest.feature)
+    assert torch.equal(single.split_bin.cpu(), one.forest.split_bin)
+    torch.testing.assert_close(single.leaf_value.cpu(),
+                               one.forest.leaf_value, rtol=0, atol=1e-4)
+
+
+def _sharded_serving_rank():
+    from repro_torch.launch import serve_gbdt
+    model = synthetic_gbdt(n_trees=60, max_depth=5, n_features=8,
+                           n_candidates=16, seed=1, device="cuda")
+    xb = np.random.default_rng(0).normal(size=(4099, 8)).astype(np.float32)
+    return [torch.equal(serve_gbdt.shard_predict(model, xb, binned=b,
+                                                 output="margin"),
+                        model.predict(xb, binned=b, output="margin"))
+            for b in (False, True)]
+
+
+@pytest.mark.cuda
+def test_sharded_serving_on_card_is_bit_identical(cuda):
+    from repro_torch.launch import distributed as dist_lib
+    assert dist_lib.run(_sharded_serving_rank, 2, device="cuda") == [True,
+                                                                     True]
 
 
 @pytest.mark.cuda
