@@ -147,8 +147,10 @@ Phases, each printing one JSON line:
    within 2e-4 abs and rel (the JAX package's tolerance) and bf16 within
    that plus one bf16 rounding step (2^-7 of the value) plus
    ``ref.attention_rounding_bound`` (the Hopper kernel rounds P to bf16
-   before its product with V); and the prefill's own shape, q (2, 32,
-   4096, 128), k/v (2, 2, 4096, 128), causal, bf16;
+   before its product with V); and the prefills' own shapes, causal,
+   bf16: glm4-9b's, q (2, 32, 4096, 128), k/v (2, 2, 4096, 128), and
+   deepseek-moe-16b's (MHA), q, k, v (2, 16, 4096, 128), each a launch of
+   the Hopper kernel;
 19. attn_time -- the kernel at that shape with CUDA events, beside the
    plain version, ``F.scaled_dot_product_attention`` (the library
    yardstick, never called by the port) and the bound; its TFLOP/s and
@@ -156,7 +158,8 @@ Phases, each printing one JSON line:
 20. prefill -- glm4-9b at full width and depth (40 layers, random bf16
    weights from a seeded generator on the card) through
    ``make_prefill_step``: one warm-up request, then 4 requests of 2 x
-   4096 tokens; p50 ms, tokens/s, peak memory, 40 flash launches a
+   4096 tokens; p50 ms, tokens/s (all the tokens over the sum of the
+   requests' walls), peak memory, 40 flash launches a
    request, all of the Hopper kernel (counts reset just before, read
    just after), the greedy next token;
 21. prefill_profile -- one request's device time by kernel (flash,
@@ -174,16 +177,68 @@ Phases, each printing one JSON line:
    on the CUDA-core kernel; and a ragged case, 1 x 1000 tokens through
    ``xla_chunked`` (blockwise, padded on the card), float32 activations,
    card against CPU within 2e-4 abs and rel;
-23. total -- the script's seconds; kernels -- one line listing every
+23. decode -- ``serve.generate("glm4-9b", smoke=False, batch=4,
+   prompt_len=32, gen=16)``, at full width and depth (random bf16 weights
+   from seed 0): the prompt token by token through the serve step into a
+   KV cache, then greedy decode; the prefill-into-cache seconds, each
+   decode step's ms (p50), tokens/s (all decoded tokens over the sum of
+   the steps' walls), peak memory, the greedy tokens, one
+   profiled step's device time, idle share and top ops, and no launch of
+   any kernel of the port (decode attention is plain torch,
+   as in the JAX package).  The decode path's logits at the prompt
+   positions (the prompt through ``prefill_into_cache`` once more,
+   keeping every position's logits, which ``generate`` does not) are held to the card's own prefill step over the prompt
+   under the prefill's contract: against the float32 logits, the decode
+   path's error at most 1.25 times the prefill step's, the two within
+   twice it, the argmax differing only at near ties;
+24. decode_time -- the serve step at the dry-run's ``decode_32k`` cache
+   length (32 768 slots, every row at position 32 767; the cache filled
+   with seeded bf16 values), batch 32 (the one cut: 128 would need 172 GB
+   of K/V), 3 warm-up and 20 timed steps: p50 ms, tokens/s (over the sum
+   of the timed walls), peak memory,
+   the bytes bound (weights and K/V read once a step over the HBM rate),
+   and one profiled step's device time by group (``decode_attention``:
+   the cache writes, scores, softmax and P V of ``attention.decode_attend``;
+   GEMMs; the rest) and the device's idle share;
+25. decode_check -- glm4-9b at full width with 2 layers, 2 rows at
+   different positions (0 and 3 ahead), the card against the port on the
+   CPU with the same weights and float32 activations and caches: every
+   step's logits within 2e-4 abs and rel, and the caches within the same
+   bound with the same slots written; without a window over 24 tokens and
+   with window 16 over 40 (the ring buffer wraps twice);
+26. moe_decode -- ``serve.generate("deepseek-moe-16b", smoke=False, ...)``
+   with decode's arguments: p50 a step, tokens/s, peak memory, a profiled
+   step's device time and idle share, the bound of reading every weight
+   once (every expert runs on its slots, empty
+   or not), no kernel launch of the port;
+27. moe_prefill -- deepseek-moe-16b at full width and depth (28 layers;
+   generate's model) through ``make_prefill_step``: one warm-up and 4
+   requests of 2 x 4096 tokens (the cut of ``prefill_32k`` that glm4-9b
+   takes); p50 ms, tokens/s, peak memory, 28 flash launches a request,
+   all of the Hopper kernel; the dropped assignments of each layer in the
+   last timed request (960 slots an expert, ``MoE.n_dropped``); one request's device time by group (the experts'
+   products and activation, ``moe_experts``; the router, dispatch and
+   combine; the shared experts; flash attention; the other GEMMs; the
+   rest) and the device's idle share;
+28. moe_check -- deepseek-moe-16b at full width with 2 layers, 1 x 256
+   tokens, the card against the port on the CPU with the same weights and
+   float32 activations: logits within 2e-4 abs and rel, the dropped
+   assignments of each layer equal (capacity factor 1.25); on the card
+   ``onehot`` and ``sort`` dispatch give equal logits at capacity factor
+   8.0;
+29. total -- the script's seconds; kernels -- one line listing every
    ported kernel with its launches,
    error, times, bound, launch floor and ``deterministic`` flag (and for
-   flash attention the variant and its SASS counts; for the histogram and
+   flash attention the variant, its SASS counts and its launches on the
+   prefill, moe_prefill and both decode paths; for the histogram and
    split gain also their launches on each path of phases 10, 11, 14
    and 15, per rank on the distributed paths).  The
    per-tree traversal is on no path any more (``launches`` 0,
    ``on_main_path`` false): it is listed as the counterpart of
    ``ops.traverse_chunk``.
 
+Each LM is freed before the next is built (glm4-9b's 17.6 GB and
+deepseek-moe-16b's 33.3 GB of weights are never resident together).
 The new phases print their seconds.  Precision: float32 matrix products
 in full float32 (``allow_tf32`` off) and bf16 products reduced in float32
 (``allow_bf16_reduced_precision_reduction`` off), set and printed first.
@@ -192,6 +247,7 @@ The last line is ``{"ok": true, "device": {...}}``.  Without a GPU the
 script exits non-zero before any result.  Every check raises on failure.
 """
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -228,6 +284,12 @@ FIG2 = dict(n=1024, ks=[4, 16, 64], trials=16)     # the quickstart's
 # prefill: glm4-9b; the dry-run's prefill_32k shape (32 x 32768) cut to
 # 2 x 4096, since its bf16 logits alone would be 318 GB
 LM_ARCH, LM_BATCH, LM_SEQ, LM_REQUESTS = "glm4-9b", 2, 4096, 4
+# serving: serve.generate's own defaults (4 prompts of 32 tokens, 16
+# generated); the dry-run's decode_32k shape (128 x 32768) cut to batch 32,
+# since its bf16 K/V alone would be 172 GB at 128
+DECODE = dict(batch=4, prompt_len=32, gen=16)
+DECODE_TIME_BATCH, DECODE_TIME_LEN, DECODE_TIME_STEPS = 32, 32_768, 20
+MOE_ARCH = "deepseek-moe-16b"
 ATTN_F32_TOL = 2e-4               # the JAX package's flash-attention test
 BF16_STEP = 2.0 ** -7             # one bf16 rounding: at most 2^-7 of x
 SASS_OPS = ("HGMMA", "UTMALDG")   # wgmma and TMA loads in cuobjdump -sass
@@ -496,6 +558,21 @@ def float32_logits(model, cfg, tokens) -> torch.Tensor:
         return model.embed.unembed(model.ln_f(x)).float().cpu()
 
 
+def float32_decode(model, cfg, state, tokens, pos, *, window=0):
+    """A decode step with float32 activations: the embedding widened, then
+    each block's decode over ``state`` (updated in place), ``ln_f`` and
+    the logits, as ``decode_step`` runs them in bf16."""
+    with torch.inference_mode():
+        device = model.embed.table.device
+        x = model.embed(torch.as_tensor(tokens, device=device),
+                        dtype=torch.float32)
+        pos = torch.as_tensor(pos, device=device)
+        for block, k, v in zip(model.layers, state["kv"]["k"],
+                               state["kv"]["v"]):
+            x = block.decode(cfg, x, {"k": k, "v": v}, pos, window=window)
+        return model.logits(model.ln_f(x)).float().cpu()
+
+
 def argmax_agreement(got, want) -> tuple[float, torch.Tensor, torch.Tensor]:
     """Share of positions whose argmax agrees, and where they differ the
     gap in ``want`` between its top token and ``got``'s."""
@@ -504,6 +581,102 @@ def argmax_agreement(got, want) -> tuple[float, torch.Tensor, torch.Tensor]:
     gap = (want.gather(-1, a_want[..., None])
            - want.gather(-1, a_got[..., None]))[..., 0]
     return 1.0 - float(differ.float().mean()), differ, gap
+
+
+def within_f32(got, want) -> tuple[bool, float]:
+    """float32 results within ATTN_F32_TOL abs and rel of ``want``."""
+    diff = (got.float().cpu() - want.float().cpu()).abs()
+    tol = ATTN_F32_TOL + ATTN_F32_TOL * want.float().cpu().abs()
+    return bool((diff <= tol).all()), float(diff.max())
+
+
+@contextlib.contextmanager
+def labelled(patches):
+    """Run the ``with`` block with each ``(module, name, label)``'s
+    function wrapped in ``torch.profiler.record_function(label)``."""
+    saved = []
+    for mod, name, label in patches:
+        real = getattr(mod, name)
+
+        def wrapped(*a, _real=real, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _real(*a, **kw)
+        saved.append((mod, name, real))
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def kernel_class(name: str) -> str:
+    name = name.lower()
+    return ("flash_attention" if "flash_kernel" in name else "gemm"
+            if any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet",
+                                       "sm90")) else "other")
+
+
+def device_ms_by_group(prof, labels) -> tuple[dict, float]:
+    """Device ms of a profile's kernels by group: the innermost of
+    ``labels`` (``record_function`` ranges) around the aten op that
+    launched the kernel; else ``flash_attention``, ``gemm`` or ``other`` by
+    the kernel's name (a kernel launched outside an aten op, as the port's
+    own kernels are through ctypes, is never inside a label here).
+    Returns (groups, busy ms)."""
+    groups = dict.fromkeys([*labels, "flash_attention", "gemm", "other"],
+                           0.0)
+    for ev in prof.key_averages():
+        # a label's range also shows on the device's timeline: not a kernel
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and ev.key not in labels:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            groups[kernel_class(ev.key)] += (
+                ev.self_cuda_time_total if dev_us is None else dev_us) / 1e3
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        label, up = None, ev
+        while up is not None and label is None:
+            label = up.name if up.name in labels else None
+            up = up.cpu_parent
+        if label is None:
+            continue
+        for k in ev.kernels:
+            groups[label] += k.duration / 1e3
+            groups[kernel_class(k.name)] -= k.duration / 1e3
+    return groups, sum(groups.values())
+
+
+def shares(groups: dict, busy: float) -> dict:
+    """Each group's share of the busy time (None where the profile saw no
+    device time)."""
+    return {g: v / busy if busy else None for g, v in groups.items()}
+
+
+def serve_step_profile(model, cfg, batch, cache_len, pos) -> tuple:
+    """One serve step of ``batch`` rows at position ``pos`` of a
+    ``cache_len``-slot cache, after one warm-up step, profiled: (device ms,
+    the top aten ops by device time)."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_decode_state
+    state = init_decode_state(cfg, batch, cache_len, device="cuda")
+    step = make_serve_step(cfg)
+    tokens = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
+    at = torch.full((batch,), pos, device="cuda")
+    step(model, state, tokens, at)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(model, state, tokens, at)
+        torch.cuda.synchronize()
+    _, busy = device_ms_by_group(prof, [])
+    return busy, by_kernel(prof, 1, "step", ops=True)[:8]
+
+
+def lm_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
 def split_gains64(h, *, l2, gamma, min_child_weight) -> torch.Tensor:
@@ -871,8 +1044,10 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch import distributed as dist_lib, \
         distributed_gbdt, quickstart, serve_gbdt
-    from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import init_params
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import attention as attn_lib, init_decode_state, \
+        init_params, layers as lm_layers, moe as moe_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -2077,6 +2252,23 @@ def main() -> int:
                            "on the card; it must raise")
     except ValueError as e:
         ragged_refusal = str(e)
+    # the moe prefill's shape: deepseek-moe-16b's MHA 16:16, 2 x 4096
+    mha_cfg = get_config(MOE_ARCH)
+    mq, mk, mv = attn_case(LM_BATCH, mha_cfg.n_heads, mha_cfg.n_kv_heads,
+                           LM_SEQ, mha_cfg.head_dim, torch.bfloat16)
+    moe_variant = flash.variant(mq.dtype, mha_cfg.head_dim)
+    before = flash.launches_by_variant["wgmma_bf16"]
+    got = flash.flash_attention_cuda(mq, mk, mv, causal=True)
+    torch.cuda.synchronize()
+    ok, moe_slice_err, moe_slice_share = attn_within(got, mq, mk, mv,
+                                                     causal=True)
+    check(ok and moe_variant == "wgmma_bf16" and got.shape == mq.shape
+          and flash.launches_by_variant["wgmma_bf16"] == before + 1,
+          f"flash kernel ({moe_variant}) != plain version at the moe "
+          f"prefill shape {tuple(mq.shape)} (max_abs_err={moe_slice_err}, "
+          f"share of tolerance {moe_slice_share}), or not on wgmma_bf16")
+    del got, mq, mk, mv
+    torch.cuda.empty_cache()
     lm_cfg = get_config(LM_ARCH)
     hq, hkv, d = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.head_dim
     q, k, v = attn_case(LM_BATCH, hq, hkv, LM_SEQ, d, torch.bfloat16)
@@ -2091,14 +2283,16 @@ def main() -> int:
     repeats["flash_attention"] = torch.equal(
         got, flash.flash_attention_cuda(q, k, v, causal=True))
     del got
-    emit("attn_check", cases=n_attn + 1, within_tolerance=True,
+    emit("attn_check", cases=n_attn + 2, within_tolerance=True,
          tolerance={"f32": {"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
                     "bf16": {"abs": ATTN_F32_TOL,
                              "rel": ATTN_F32_TOL + BF16_STEP,
                              "plus": "ref.attention_rounding_bound"}},
-         max_abs_err={**attn_err, "prefill_shape_wgmma_bf16": slice_err},
-         max_share_of_tolerance={**attn_share,
-                                 "prefill_shape_wgmma_bf16": slice_share},
+         max_abs_err={**attn_err, "prefill_shape_wgmma_bf16": slice_err,
+                      "moe_prefill_shape_wgmma_bf16": moe_slice_err},
+         max_share_of_tolerance={
+             **attn_share, "prefill_shape_wgmma_bf16": slice_share,
+             "moe_prefill_shape_wgmma_bf16": moe_slice_share},
          ragged={"max_abs_err": ragged_err,
                  "share_of_tolerance": ragged_share,
                  "no_mask_raises": ragged_refusal},
@@ -2176,7 +2370,8 @@ def main() -> int:
          reduced=["shape: prefill_32k 32 x 32768 -> 2 x 4096 tokens"],
          requests=LM_REQUESTS, warmup_requests=1, attn_impl=lm_cfg.attn_impl,
          init_seconds=init_seconds, request_ms=[w * 1e3 for w in walls],
-         p50_ms=p50 * 1e3, tokens_per_s=LM_BATCH * LM_SEQ / p50,
+         p50_ms=p50 * 1e3,
+         tokens_per_s=LM_BATCH * LM_SEQ * len(walls) / sum(walls),
          memory_allocated_before_gb=live_before / 1e9,
          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
          flash_launches=n_flash, flash_launches_per_request=n_flash
@@ -2195,11 +2390,7 @@ def main() -> int:
     rows = by_kernel(prof, 1, "request")
     groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for r in rows:
-        name = r["name"].lower()
-        group = ("flash_attention" if "flash_kernel" in name else "gemm"
-                 if any(t in name for t in ("gemm", "xmma", "cutlass",
-                                            "nvjet", "sm90")) else "other")
-        groups[group] += r["device_us_per_request"] / 1e3
+        groups[kernel_class(r["name"])] += r["device_us_per_request"] / 1e3
     busy_ms = sum(groups.values())
     emit("prefill_profile", requests=1, wall_ms_per_request=p50 * 1e3,
          device_ms_per_request=busy_ms,
@@ -2303,7 +2494,352 @@ def main() -> int:
          cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_phase)
     del model, card, on_cpu, card_f32, cpu_f32, card_ragged, cpu_ragged
 
-    # 23. kernels ---------------------------------------------------------
+    # 23. decode ----------------------------------------------------------
+    # serve.generate at full width and depth: the prompt token by token
+    # through the serve step into a KV cache, then greedy decode; decode
+    # attention is plain torch, so no kernel of the port runs
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    run = serve_lm.generate(LM_ARCH, smoke=False, **DECODE)
+    torch.cuda.synchronize()
+    decode_counts = read()
+    check(sum(decode_counts) == 0,
+          f"decode launched kernels of the port: {decode_counts} (hist, "
+          "hist_left, split_gain, traverse, forest_sum, flash)")
+    decode_peak = torch.cuda.max_memory_allocated()
+    dcfg, dmodel = run.cfg, run.model
+    b, s = DECODE["batch"], DECODE["prompt_len"]
+    check(run.tokens.shape == (b, DECODE["gen"])
+          and run.last_logits.shape == (b, 1, dcfg.vocab_size)
+          and bool(torch.isfinite(run.last_logits).all()),
+          f"decode: tokens {tuple(run.tokens.shape)}, last logits "
+          f"{tuple(run.last_logits.shape)}, or not finite")
+    check(torch.equal(run.tokens[:, 0], run.last_logits[:, -1].argmax(-1)),
+          "decode: the first greedy token is not the argmax of the last "
+          "prompt position's logits")
+    # the decode path's logits at every prompt position (the prompt again
+    # through prefill_into_cache, keeping them) against the card's own
+    # prefill step over the prompt, under the prefill's contract: each
+    # measured against the float32 logits, the decode path at most 1.25
+    # times the prefill step's error, the two within twice that error,
+    # argmax differing only at near ties
+    prefill_logits = make_prefill_step(dcfg)(
+        dmodel, {"tokens": run.prompts}).float().cpu()
+    f32 = float32_logits(dmodel, dcfg, run.prompts)
+    seen: list = []
+    last, _, _ = serve_lm.prefill_into_cache(
+        dmodel, dcfg, {"tokens": run.prompts}, s + DECODE["gen"],
+        prompt_logits=seen)
+    check(torch.equal(last, run.last_logits),
+          "decode: the prompt's second pass into a cache differs from the "
+          "first")
+    dec = torch.cat(seen, 1).float().cpu()
+    del seen, last
+    prefill_err = float((prefill_logits - f32).abs().max())
+    dec_err = float((dec - f32).abs().max())
+    dec_diff = float((dec - prefill_logits).abs().max())
+    agree, differ, _ = argmax_agreement(dec, prefill_logits)
+    _, _, gap_f32 = argmax_agreement(dec, f32)
+    ties_ok = bool((gap_f32[differ].abs() <= 2 * prefill_err).all())
+    check(dec_diff <= 2 * prefill_err and dec_err <= 1.25 * prefill_err
+          and ties_ok,
+          f"decode: prompt logits {dec_diff} from the prefill step's (bound "
+          f"{2 * prefill_err}: twice its bf16 error against the float32 "
+          f"logits); the decode path's error {dec_err} (bound "
+          f"{1.25 * prefill_err}); argmax agreement {agree}, near ties "
+          f"{ties_ok}")
+    decode_busy, decode_ops = serve_step_profile(
+        dmodel, dcfg, b, s + DECODE["gen"], s)
+    emit("decode", arch=LM_ARCH, n_layers=dcfg.n_layers, **DECODE,
+         cache_len=s + DECODE["gen"], weights="random bf16, seed 0",
+         prefill_into_cache_seconds=run.prefill_seconds,
+         step_ms=[t * 1e3 for t in run.step_seconds],
+         step_p50_ms=run.step_p50_ms, tokens_per_s=run.tokens_per_s,
+         device_ms_per_step=decode_busy,
+         device_idle_share=1 - decode_busy / run.step_p50_ms,
+         by_op=decode_ops, max_memory_allocated_gb=decode_peak / 1e9,
+         flash_launches=decode_counts[-1], tokens=run.tokens.tolist(),
+         prompt_logits_vs_prefill={
+             "max_abs_err": dec_diff, "bound": 2 * prefill_err,
+             "decode_err_vs_f32": dec_err, "prefill_err_vs_f32": prefill_err,
+             "argmax_agreement": agree},
+         seconds=time.perf_counter() - t_phase)
+    del run, prefill_logits, f32, dec
+
+    # 24. decode_time -----------------------------------------------------
+    # the serve step at the dry-run's decode_32k cache length, the cache
+    # filled with seeded bf16 values, every row at position 32767
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bt, L = DECODE_TIME_BATCH, DECODE_TIME_LEN
+    state = init_decode_state(dcfg, bt, L, device="cuda")
+    fill = torch.Generator(device="cuda").manual_seed(5)
+    for t in state["kv"].values():
+        t.normal_(generator=fill)
+    tokens = torch.randint(0, dcfg.vocab_size, (bt, 1), generator=fill,
+                           device="cuda")
+    pos = torch.full((bt,), L - 1, device="cuda")
+    serve_step = make_serve_step(dcfg)
+    walls = []
+    reset()
+    for i in range(3 + DECODE_TIME_STEPS):
+        t0 = time.perf_counter()
+        logits, state = serve_step(dmodel, state, tokens, pos)
+        torch.cuda.synchronize()
+        if i >= 3:
+            walls.append(time.perf_counter() - t0)
+    time_counts = read()
+    check(sum(time_counts) == 0 and logits.shape == (bt, 1, dcfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"decode_time: logits {tuple(logits.shape)} or not finite, or "
+          f"kernels of the port launched: {time_counts}")
+    time_peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(walls))
+    with labelled([(attn_lib, "decode_attend", "decode_attention")]), \
+            torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        logits, state = serve_step(dmodel, state, tokens, pos)
+        torch.cuda.synchronize()
+    groups, busy = device_ms_by_group(prof, ["decode_attention"])
+    time_ops = by_kernel(prof, 1, "step", ops=True)[:12]
+    kv_bytes = sum(t.numel() * t.element_size() for t in state["kv"].values())
+    w_bytes = lm_bytes(dmodel)
+    decode_bound = (kv_bytes + w_bytes) / HBM_BYTES_PER_S * 1e3
+    emit("decode_time", arch=LM_ARCH, n_layers=dcfg.n_layers, batch=bt,
+         cache_len=L, pos=L - 1, cache="random bf16, seed 5",
+         reduced=["shape: decode_32k batch 128 -> 32"],
+         warmup_steps=3, steps=DECODE_TIME_STEPS,
+         step_ms=[w * 1e3 for w in walls], step_p50_ms=p50 * 1e3,
+         tokens_per_s=bt * len(walls) / sum(walls),
+         max_memory_allocated_gb=time_peak / 1e9,
+         weights_gb=w_bytes / 1e9, kv_cache_gb=kv_bytes / 1e9,
+         bytes_bound_ms=decode_bound, share_of_bound=decode_bound / (p50 * 1e3),
+         device_ms_per_step=busy, device_idle_share=1 - busy / (p50 * 1e3),
+         by_group_ms=groups, by_group_share=shares(groups, busy),
+         by_op=time_ops, seconds=time.perf_counter() - t_phase)
+    del state, logits, prof, dmodel, tokens, pos
+    torch.cuda.empty_cache()
+
+    # 25. decode_check ----------------------------------------------------
+    # glm4-9b at full width with 2 layers: the card against the port on
+    # the CPU, the same weights, float32 activations and caches; rows at
+    # different positions; without a window and with window 16 over 40
+    # tokens (the ring buffer wraps twice)
+    t_phase = time.perf_counter()
+    ccfg = dataclasses.replace(lm_cfg, n_layers=2)
+    cmodel = init_params(ccfg, generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    cpu_model = init_params(ccfg, device="meta", dtype=torch.float32)
+    cpu_model.load_state_dict({k: v.to("cpu", torch.float32) for k, v in
+                               cmodel.state_dict().items()},
+                              assign=True, strict=True)
+    offsets = torch.tensor([0, 3])
+    decode_cases = {}
+    for window, n_steps, cache_len in ((0, 24, 27), (16, 40, 16)):
+        toks = torch.from_numpy(rng.integers(0, ccfg.vocab_size,
+                                             size=(2, n_steps)))
+        states = {dev: init_decode_state(ccfg, 2, cache_len, device=dev,
+                                         dtype=torch.float32)
+                  for dev in ("cuda", "cpu")}
+        worst = 0.0
+        for t in range(n_steps):
+            out = {}
+            for dev, m in (("cuda", cmodel), ("cpu", cpu_model)):
+                out[dev] = float32_decode(m, ccfg, states[dev],
+                                          toks[:, t:t + 1], t + offsets,
+                                          window=window)
+            ok, err = within_f32(out["cuda"], out["cpu"])
+            worst = max(worst, err)
+            check(ok, f"decode_check (window {window}): step {t}: logits on "
+                  f"the card differ from the CPU's beyond {ATTN_F32_TOL} "
+                  f"(max_abs_err={err})")
+        last = n_steps - 1 + offsets
+        cache_err = 0.0
+        for name in ("k", "v"):
+            card, host = states["cuda"]["kv"][name].cpu(), \
+                states["cpu"]["kv"][name]
+            ok, err = within_f32(card, host)
+            cache_err = max(cache_err, err)
+            written = [sorted({int(i) for i in (host[:, r] != 0).any(
+                -1).any(-1).any(0).nonzero()[:, 0]}) for r in range(2)]
+            want = [sorted({(p % cache_len) if window else
+                            min(p, cache_len - 1)
+                            for p in range(int(o), int(e) + 1)})
+                    for o, e in zip(offsets, last)]
+            check(ok and torch.equal(card != 0, host != 0)
+                  and written == want,
+                  f"decode_check (window {window}): cache {name} differs "
+                  f"(max_abs_err={err}) or writes other slots ({written}, "
+                  f"want {want})")
+        decode_cases[f"window_{window}"] = {
+            "steps": n_steps, "cache_len": cache_len,
+            "positions": [[int(o), int(e)] for o, e in zip(offsets, last)],
+            "logits_max_abs_err": worst, "cache_max_abs_err": cache_err}
+    emit("decode_check", arch=LM_ARCH, n_layers=ccfg.n_layers, batch=2,
+         tolerance={"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
+         cases=decode_cases, seconds=time.perf_counter() - t_phase)
+    del cmodel, cpu_model, states
+    torch.cuda.empty_cache()
+
+    # 26. moe_decode ------------------------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    mrun = serve_lm.generate(MOE_ARCH, smoke=False, **DECODE)
+    torch.cuda.synchronize()
+    moe_decode_counts = read()
+    moe_decode_peak = torch.cuda.max_memory_allocated()
+    mcfg, mmodel = mrun.cfg, mrun.model
+    check(sum(moe_decode_counts) == 0
+          and mrun.tokens.shape == (b, DECODE["gen"])
+          and bool(torch.isfinite(mrun.last_logits).all()),
+          f"moe_decode: tokens {tuple(mrun.tokens.shape)}, logits not "
+          f"finite, or kernels of the port launched: {moe_decode_counts}")
+    m_bytes = lm_bytes(mmodel)
+    moe_busy, moe_step_ops = serve_step_profile(
+        mmodel, mcfg, b, s + DECODE["gen"], s)
+    emit("moe_decode", arch=MOE_ARCH, n_layers=mcfg.n_layers,
+         params=sum(p.numel() for p in mmodel.parameters()),
+         weights="random bf16 experts, float32 router, seed 0", **DECODE,
+         capacity_per_expert=moe_lib.capacity(mcfg, b),
+         prefill_into_cache_seconds=mrun.prefill_seconds,
+         step_ms=[t * 1e3 for t in mrun.step_seconds],
+         step_p50_ms=mrun.step_p50_ms, tokens_per_s=mrun.tokens_per_s,
+         device_ms_per_step=moe_busy,
+         device_idle_share=1 - moe_busy / mrun.step_p50_ms,
+         by_op=moe_step_ops, weights_gb=m_bytes / 1e9,
+         weights_bound_ms=m_bytes / HBM_BYTES_PER_S * 1e3,
+         max_memory_allocated_gb=moe_decode_peak / 1e9,
+         flash_launches=moe_decode_counts[-1], tokens=mrun.tokens.tolist(),
+         seconds=time.perf_counter() - t_phase)
+    del mrun
+
+    # 27. moe_prefill -----------------------------------------------------
+    # deepseek-moe-16b at full width and depth through make_prefill_step,
+    # the same cut of prefill_32k as glm4-9b's (2 x 4096 tokens)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mstep = make_prefill_step(mcfg)
+    requests = [rng.integers(0, mcfg.vocab_size, size=(LM_BATCH, LM_SEQ))
+                for _ in range(LM_REQUESTS + 1)]
+    logits = mstep(mmodel, {"tokens": requests[0]})          # warm-up
+    torch.cuda.synchronize()
+    del logits
+    walls = []
+    reset()
+    for tokens in requests[1:]:
+        t0 = time.perf_counter()
+        logits = mstep(mmodel, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(logits.shape == (LM_BATCH, LM_SEQ, mcfg.vocab_size)
+              and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()),
+              f"moe_prefill logits {tuple(logits.shape)} {logits.dtype}, or "
+              "not finite")
+        del logits
+    n_hist, n_left, n_gain, n_trav, n_forest, n_flash = read()
+    moe_launches = n_flash
+    moe_by_variant = dict(flash.launches_by_variant)
+    check(n_flash == mcfg.n_layers * LM_REQUESTS
+          and moe_by_variant[lm_variant] == n_flash
+          and n_hist + n_left + n_gain + n_trav + n_forest == 0,
+          f"moe_prefill: {n_flash} flash launches for {LM_REQUESTS} requests "
+          f"({moe_by_variant}), want {mcfg.n_layers} a request, all "
+          f"{lm_variant}, and no other kernel")
+    moe_peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(walls))
+    # dropped assignments per layer, as each layer counted them in the
+    # last timed request
+    drops = [int(blk.moe.n_dropped) for blk in mmodel.layers]
+    with labelled([(moe_lib, "expert_ffn", "moe_experts"),
+                   (moe_lib, "moe_layer", "moe_route_dispatch_combine"),
+                   (lm_layers.MLP, "forward", "moe_shared")]), \
+            torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        logits = mstep(mmodel, {"tokens": requests[1]})
+        torch.cuda.synchronize()
+    groups, busy = device_ms_by_group(
+        prof, ["moe_experts", "moe_route_dispatch_combine", "moe_shared"])
+    moe_ops = by_kernel(prof, 1, "request", ops=True)[:12]
+    tg = LM_BATCH * LM_SEQ // moe_lib.groups(mcfg, LM_BATCH * LM_SEQ)
+    emit("moe_prefill", arch=MOE_ARCH, n_layers=mcfg.n_layers,
+         d_model=mcfg.d_model, n_experts=mcfg.n_experts, top_k=mcfg.top_k,
+         n_shared_experts=mcfg.n_shared_experts,
+         d_ff_expert=mcfg.d_ff_expert, vocab_size=mcfg.vocab_size,
+         params=sum(p.numel() for p in mmodel.parameters()),
+         weights_gb=m_bytes / 1e9, batch=LM_BATCH, seq=LM_SEQ,
+         reduced=["shape: prefill_32k 32 x 32768 -> 2 x 4096 tokens"],
+         requests=LM_REQUESTS, warmup_requests=1,
+         request_ms=[w * 1e3 for w in walls], p50_ms=p50 * 1e3,
+         tokens_per_s=LM_BATCH * LM_SEQ * len(walls) / sum(walls),
+         max_memory_allocated_gb=moe_peak / 1e9,
+         flash_launches=n_flash,
+         flash_launches_per_request=n_flash / LM_REQUESTS,
+         flash_launches_by_variant=moe_by_variant,
+         capacity_per_expert=moe_lib.capacity(mcfg, tg),
+         assignments_per_layer=tg * mcfg.top_k,
+         dropped_per_layer=drops,
+         device_ms_per_request=busy,
+         device_idle_share=1 - busy / (p50 * 1e3), by_group_ms=groups,
+         by_group_share=shares(groups, busy), by_op=moe_ops,
+         seconds=time.perf_counter() - t_phase)
+    del mmodel, logits, prof
+    torch.cuda.empty_cache()
+
+    # 28. moe_check -------------------------------------------------------
+    # deepseek-moe-16b at full width with 2 layers, 1 x 256 tokens: the
+    # card against the port on the CPU with the same weights and float32
+    # activations; the dropped assignments of each layer equal on both;
+    # on the card onehot and sort dispatch equal where nothing is dropped
+    t_phase = time.perf_counter()
+    kcfg = dataclasses.replace(mcfg, n_layers=2)
+    kmodel = init_params(kcfg, generator=torch.Generator(
+        device="cuda").manual_seed(4), device="cuda")
+    cpu_k = init_params(kcfg, device="meta", dtype=torch.float32)
+    cpu_k.load_state_dict({k: v.to("cpu", torch.float32) for k, v in
+                           kmodel.state_dict().items()},
+                          assign=True, strict=True)
+    ktokens = rng.integers(0, kcfg.vocab_size, size=(1, 256))
+
+    def f32_with_drops(model):
+        out = float32_logits(model, kcfg, ktokens)
+        return out, [int(blk.moe.n_dropped) for blk in model.layers]
+
+    card_f32, card_drops = f32_with_drops(kmodel)
+    host_f32, host_drops = f32_with_drops(cpu_k)
+    ok, moe_err = within_f32(card_f32, host_f32)
+    check(ok and bool(torch.isfinite(card_f32).all()),
+          f"moe_check: float32 logits on the card differ from the CPU's "
+          f"beyond {ATTN_F32_TOL} (max_abs_err={moe_err})")
+    check(card_drops == host_drops, f"moe_check: dropped assignments per "
+          f"layer {card_drops} on the card, {host_drops} on the CPU")
+    roomy = {}
+    for dispatch in ("onehot", "sort"):
+        rcfg = dataclasses.replace(kcfg, capacity_factor=8.0,
+                                   moe_dispatch=dispatch)
+        roomy[dispatch] = make_prefill_step(rcfg)(kmodel,
+                                                  {"tokens": ktokens})
+    check(torch.equal(roomy["onehot"], roomy["sort"]),
+          "moe_check: sort dispatch differs from onehot on the card at "
+          "capacity_factor 8.0")
+    emit("moe_check", arch=MOE_ARCH, n_layers=kcfg.n_layers,
+         tokens=list(ktokens.shape),
+         f32_logits_max_abs_err=moe_err,
+         f32_tolerance={"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
+         dropped_per_layer={"card": card_drops, "cpu": host_drops},
+         capacity_per_expert=moe_lib.capacity(kcfg, 256),
+         sort_equals_onehot_at_cf8=True,
+         seconds=time.perf_counter() - t_phase)
+    del kmodel, cpu_k, roomy
+    torch.cuda.empty_cache()
+
+    # 29. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
         t = forest_timing[binned]
@@ -2386,8 +2922,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:70",
         "variant": lm_variant,
         "sass_counts": flash_sass,
-        "launches": lm_launches,
-        "launches_per_request": lm_cfg.n_layers,
+        "launches": lm_launches + moe_launches,
+        "launches_by_path": {"prefill": lm_launches,
+                             "moe_prefill": moe_launches,
+                             "decode": decode_counts[-1],
+                             "moe_decode": moe_decode_counts[-1]},
+        "launches_per_request": {"prefill": lm_cfg.n_layers,
+                                 "moe_prefill": mcfg.n_layers},
         "max_abs_err": slice_err,
         "ms": attn_timing["ms"],
         "plain_ms": attn_timing["plain_ms"],

@@ -21,10 +21,11 @@ example).  ``repro_torch.core.rank_error`` holds the Theorem 1
 machinery, and ``python -m repro_torch.launch.quickstart`` runs the
 paper in a minute.
 
-It also prefills the dense LM family (``repro_torch.models``,
+It also prefills the dense and moe LM families (``repro_torch.models``,
 ``repro_torch.launch.steps.make_prefill_step``) through a hand-written
-flash-attention kernel.  Entry points run on the card unless the caller
-passes ``device="cpu"``.
+flash-attention kernel, and serves them by greedy decode against a KV
+cache (``make_serve_step``; ``python -m repro_torch.launch.serve``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from .checkpoint import load_gbdt, model_from_numpy, save_gbdt

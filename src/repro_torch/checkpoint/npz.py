@@ -4,9 +4,13 @@ The JAX package's ``checkpoint/npz.py`` writes a params pytree as one
 ``.npz`` per step: keys are paths such as ``layers/attn/wq/w``, the layer
 axis is stacked first, weights are (d_in, d_out).  The port's module
 names follow the same paths (``layers.3.attn.wq.w``), so a file written
-by either package loads into the other.  bf16 arrays, which numpy stores
-as raw 2-byte voids, are read back as bf16.  Writes are atomic (tmp +
-rename).
+by either package loads into the other; a moe model's router and experts
+are ``layers/moe/router/w``, ``layers/moe/{wi,wg,wo}`` and
+``layers/moe/shared/...``.  bf16 arrays, which numpy stores as raw
+2-byte voids, are read back as bf16.  Writes are atomic (tmp + rename).
+
+A decode state crosses the same way (``kv/k``, ``kv/v``, layer axis
+first): :func:`decode_state_from_numpy` and :func:`decode_state_to_numpy`.
 """
 
 from __future__ import annotations
@@ -119,3 +123,38 @@ def save_checkpoint(ckpt_dir: str, step: int, model: DecoderLM) -> str:
         os.unlink(tmp)
         raise
     return path
+
+
+def decode_state_from_numpy(cfg, flat, *, device="cuda") -> dict:
+    """The port's decode state from the JAX package's flattened one.
+
+    ``flat`` maps ``kv/k`` and ``kv/v`` to (n_layers, B, L, Hkv, Dh)
+    arrays, kept in their dtype (bf16 in the JAX package).  Raises
+    KeyError on a missing or unexpected path, ValueError on a shape that
+    does not match the config.
+    """
+    device = device_of(device)
+    keys = {"kv/k": "k", "kv/v": "v"}
+    if set(flat) != set(keys):
+        raise KeyError(f"{cfg.name}: decode state keys {sorted(flat)}, "
+                       f"want {sorted(keys)}")
+    kv = {}
+    for key, name in keys.items():
+        arr = _from_numpy(flat[key])
+        if arr.dim() != 5 or arr.shape[0] != cfg.n_layers or \
+                tuple(arr.shape[3:]) != (cfg.n_kv_heads, cfg.head_dim):
+            raise ValueError(f"{key}: shape {tuple(arr.shape)}, the config "
+                             f"wants ({cfg.n_layers}, B, L, "
+                             f"{cfg.n_kv_heads}, {cfg.head_dim})")
+        kv[name] = arr.to(device=device, copy=True)
+    if kv["k"].shape != kv["v"].shape:
+        raise ValueError(f"kv/k {tuple(kv['k'].shape)} and kv/v "
+                         f"{tuple(kv['v'].shape)} differ")
+    return {"kv": kv}
+
+
+def decode_state_to_numpy(state: dict) -> dict[str, np.ndarray]:
+    """A decode state as the JAX package's flat paths, float32 (a bf16
+    cache widens exactly)."""
+    return {f"kv/{name}": t.detach().to("cpu", torch.float32).numpy()
+            for name, t in state["kv"].items()}

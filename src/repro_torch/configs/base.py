@@ -7,11 +7,12 @@ a config means the same thing to both packages.  Every
 <=4 experts) used by the CPU tests.
 
 In the port, ``attn_impl`` picks the attention path (see
-``models/attention.py``).  The knobs that only shape a JAX compilation
-are accepted and have no effect here: ``causal_skip`` (the CUDA kernel
-always skips tiles wholly outside the causal band), ``scan_layers``,
-``scan_chunks``, ``remat``, ``seq_shard``, ``train_microbatches``,
-``moe_groups`` and ``attn_chunk``.
+``models/attention.py``), and ``moe_groups`` and ``moe_dispatch`` the MoE
+layer's dispatch (``models/moe.py``).  The knobs that only shape a JAX
+compilation are accepted and have no effect here: ``causal_skip`` (the
+CUDA kernel always skips tiles wholly outside the causal band),
+``scan_layers``, ``scan_chunks``, ``remat``, ``seq_shard``,
+``train_microbatches`` and ``attn_chunk``.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
 """Launch layer: the GBDT serving entry point (``serve_gbdt``), the
 process groups of the distributed trainer (``distributed``) and its
-example (``distributed_gbdt``), the quickstart, and the LM's prefill step
-(``steps.make_prefill_step``)."""
+example (``distributed_gbdt``), the quickstart, and the LM's steps
+(``steps.make_prefill_step``, ``steps.make_serve_step``), its greedy
+serving launcher (``serve``) and the serving demo (``serve_decode``)."""

@@ -1,10 +1,14 @@
-"""Model substrate of the port: the dense decoder LM (prefill).
+"""Model substrate of the port: the decoder LM of the dense and moe
+families (prefill and decode).
 
 layers    — RMSNorm, linear maps, embedding, MLPs, RoPE
-attention — GQA attention with RoPE and causal / window masks
-model     — ``init_params``, the decoder block and ``DecoderLM``
+attention — GQA attention with RoPE and causal / window masks; KV-cache
+            decode
+moe       — the mixture-of-experts layer (router, dispatch, experts)
+model     — ``init_params``, ``init_decode_state``, the decoder block and
+            ``DecoderLM``
 """
 
-from .model import DecoderLM, init_params
+from .model import DecoderLM, init_decode_state, init_params
 
-__all__ = ["DecoderLM", "init_params"]
+__all__ = ["DecoderLM", "init_decode_state", "init_params"]

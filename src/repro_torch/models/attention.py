@@ -1,8 +1,10 @@
-"""Attention of the dense decoder: GQA + RoPE + sliding window.
+"""Attention of the decoder: GQA + RoPE + sliding window.
 
-A port of the full-sequence path of the JAX package's
-``models/attention.py`` (train / prefill).  ``cfg.attn_impl`` picks the
-path, as ``attention.py:188-217`` of the JAX package does:
+A port of the JAX package's ``models/attention.py``: the full-sequence
+path (train / prefill) and single-token decode against a KV cache
+(:func:`init_kv_cache`, :func:`attention_decode`).  For the full
+sequence ``cfg.attn_impl`` picks the path, as ``attention.py:188-217``
+of the JAX package does:
 
 * ``pallas`` goes to ``ops.flash_attention``: on a CUDA tensor the
   hand-written kernel (``kernels/csrc/flash_attention.cu``), on a CPU
@@ -19,12 +21,14 @@ path, as ``attention.py:188-217`` of the JAX package does:
 
 Layouts: activations (B, S, D); q (B, S, Hq, Dh) and k/v (B, S, Hkv, Dh)
 out of the projections; the kernel takes (B, H, S, Dh).  Grouped queries
-never materialise repeated K/V.
+never materialise repeated K/V.  A KV cache is (B, L, Hkv, Dh), a ring
+buffer of the last L tokens under a sliding window.  Decode attention is
+plain torch, as it is plain ``jnp`` in the JAX package: float32 scores
+and softmax over the whole cache.
 
 Left out: the JAX ``sharding.constrain`` calls, which are no-ops without
 a mesh (the port runs on one card); cross-attention (``kv_x``, the audio
-family); and decode (``attention_decode``, ``init_kv_cache``), which
-waits for the decode slice.
+family).
 """
 
 from __future__ import annotations
@@ -131,3 +135,78 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
             *heads, causal=causal, window=window,
             ragged=cfg.attn_impl == "xla_chunked").transpose(1, 2)
     return p.wo(out.reshape(b, sq, cfg.n_heads * cfg.head_dim))
+
+
+def init_kv_cache(cfg, batch: int, length: int,
+                  dtype: torch.dtype = layers.COMPUTE_DTYPE, *,
+                  device) -> dict:
+    """``{"k", "v"}``, each zeros of (batch, length, Hkv, Dh)."""
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(p: Attention, cfg, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor, *, window: int = 0,
+                     use_rope: bool = True):
+    """Single-token decode against a KV cache.
+
+    Args:
+      x: (B, 1, D) current-token activations.
+      cache: ``{"k", "v"}``, each (B, L, Hkv, Dh).  Under a sliding window
+        L is the window and the cache a ring buffer (slot ``pos % L``);
+        otherwise L is the longest sequence, and a position past it
+        overwrites the last slot, as in the JAX package.
+      pos: (B,) int absolute position of each row's new token.
+
+    Returns (out (B, 1, D), cache).  The cache is updated IN PLACE (and
+    returned): the new K and V (projected, then rotated) go into one slot
+    a row.  The JAX function returns a new cache instead; a copy here
+    would double a cache of tens of GB.
+    """
+    q, k, v = project_qkv(p, cfg, x)
+    pos = pos.to(x.device)
+    if use_rope:
+        q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
+    out = decode_attend(cfg, q, k, v, cache, pos, window=window)
+    return p.wo(out.to(x.dtype)), cache
+
+
+def decode_attend(cfg, q, k, v, cache: dict, pos: torch.Tensor, *,
+                  window: int = 0) -> torch.Tensor:
+    """The cache's part of decode attention: write k and v (B, 1, Hkv, Dh)
+    into one slot a row of ``cache`` (in place), then attend q (B, 1, Hq,
+    Dh) over the valid slots.  Returns (B, 1, Hq * Dh) float32.
+
+    The slot is ``pos % L`` under a window (the ring buffer, every slot
+    valid once written) and ``min(pos, L - 1)`` otherwise (slots up to
+    ``pos`` valid).  Scores and softmax in float32, masked at NEG_INF.
+    """
+    b = q.shape[0]
+    L = cache["k"].shape[1]
+    slot = pos % L if window > 0 else pos.clamp(max=L - 1)
+    rows = torch.arange(b, device=q.device)
+    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+
+    # float32 (B, Hkv, L, Dh), laid out for the batched products: one pass
+    # over the cache each, where a cast that kept the cache's layout would
+    # be copied again inside the product
+    kg, vg = (cache[n].transpose(1, 2).to(
+        torch.float32, memory_format=torch.contiguous_format)
+        for n in ("k", "v"))
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = q.transpose(1, 2).reshape(b, cfg.n_kv_heads, g, 1, cfg.head_dim)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
+                     kg) / (cfg.head_dim ** 0.5)
+    idx = torch.arange(L, device=q.device)[None, :]
+    if window > 0:
+        valid = idx < torch.clamp(pos[:, None] + 1, max=L)
+    else:
+        valid = idx <= pos[:, None]
+    pr = torch.softmax(torch.where(valid[:, None, None, None, :], s,
+                                   NEG_INF), dim=-1)
+    og = torch.einsum("bhgqk,bhkd->bhgqd", pr, vg)
+    out = og.reshape(b, cfg.n_heads, 1, cfg.head_dim).transpose(1, 2)
+    return out.reshape(b, 1, cfg.n_heads * cfg.head_dim)

@@ -1,16 +1,26 @@
-"""The dense decoder LM: init, decoder block, backbone, hidden, forward.
+"""The decoder LM: init, decoder block, backbone, hidden, forward, decode.
 
-A port of the ``dense`` family of the JAX package's ``models/model.py``
-(prefill: the full-sequence forward).  Parameters live in ``nn.Module``s
-whose names follow the JAX params pytree, so ``layers.3.attn.wq.w`` here
-is ``params["layers"]["attn"]["wq"]["w"][3]`` there (the JAX package
+A port of the ``dense`` and ``moe`` families of the JAX package's
+``models/model.py``: the full-sequence forward (prefill) and one decode
+step against a KV cache.  Parameters live in ``nn.Module``s whose names
+follow the JAX params pytree, so ``layers.3.attn.wq.w`` here is
+``params["layers"]["attn"]["wq"]["w"][3]`` there (the JAX package
 stacks the layer axis first for its ``lax.scan``; the port keeps one
-module per layer and runs them in a Python loop).
+module per layer and runs them in a Python loop).  A ``moe`` layer has
+``moe`` (``models/moe.py``) where a dense one has ``mlp``, and the
+backbone sums the layers' router losses into ``aux``.
+
+The decode state is the JAX package's pytree: ``{"kv": {"k", "v"}}``,
+each (n_layers, B, L, Hkv, Dh), the layer axis first, so a JAX state
+converts 1:1 (``checkpoint.npz.decode_state_from_numpy``).  A decode
+step updates it in place.
 
 The config's execution knobs are read at call time: a model built for a
 config runs under any config that differs from it only in those knobs
-(``attn_impl`` and the JAX compilation knobs, see ``configs/base.py``).
-Other families raise ``NotImplementedError`` naming their ROADMAP item.
+(``attn_impl``, the MoE layer's ``moe_groups``, ``moe_dispatch``,
+``capacity_factor`` and ``router_aux_weight``, and the JAX compilation
+knobs, see ``configs/base.py``).  Other families raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,18 +31,19 @@ import torch
 from torch import nn
 
 from . import layers
-from .attention import Attention
+from .attention import Attention, attention_decode, init_kv_cache
+from .moe import MoE
 from ..kernels.ops import device_of
 
 # fields of ArchConfig that change how a model runs, not its parameters
 EXECUTION_FIELDS = ("name", "attn_impl", "attn_chunk", "causal_skip",
                     "scan_layers", "scan_chunks", "remat", "seq_shard",
                     "train_microbatches", "moe_groups", "moe_dispatch",
+                    "capacity_factor", "router_aux_weight",
                     "long_context_window")
 
 _NOT_PORTED = {
     "vlm": "ROADMAP queue 1 item 8 (the vlm family)",
-    "moe": "ROADMAP queue 1 item 9 (the moe family)",
     "ssm": "ROADMAP queue 1 item 10 (the ssm and hybrid families)",
     "hybrid": "ROADMAP queue 1 item 10 (the ssm and hybrid families)",
     "audio": "ROADMAP queue 1 item 11 (the audio family)",
@@ -40,7 +51,7 @@ _NOT_PORTED = {
 
 
 def check_family(cfg) -> None:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
@@ -50,7 +61,8 @@ def check_family(cfg) -> None:
 
 
 class DecoderBlock(nn.Module):
-    """Pre-norm ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``."""
+    """Pre-norm ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``, or ``x +
+    moe(ln2(x))`` in the moe family."""
 
     def __init__(self, cfg, *, generator=None, device, dtype):
         super().__init__()
@@ -58,12 +70,32 @@ class DecoderBlock(nn.Module):
         self.ln1 = layers.RMSNorm(cfg.d_model, device=device)
         self.attn = Attention(cfg, **kw)
         self.ln2 = layers.RMSNorm(cfg.d_model, device=device)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
+        if cfg.family == "moe":
+            self.moe, self.mlp = MoE(cfg, **kw), None
+        else:
+            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
+            self.moe = None
+
+    def _ffn(self, cfg, x):
+        """``x + ffn(ln2(x))`` -> (x, the router loss, or None)."""
+        z = self.ln2(x)
+        if self.moe is None:
+            return x + self.mlp(z), None
+        y, aux = self.moe(cfg, z)
+        return x + y, aux
 
     def forward(self, cfg, x, positions, *, window=0, causal=True):
+        """x (B, S, D) -> (x, the router loss, or None)."""
         x = x + self.attn(cfg, self.ln1(x), positions, causal=causal,
                           window=window)
-        return x + self.mlp(self.ln2(x))
+        return self._ffn(cfg, x)
+
+    def decode(self, cfg, x, cache, pos, *, window=0):
+        """One token x (B, 1, D) against this layer's ``cache`` (updated
+        in place) -> x."""
+        h, _ = attention_decode(self.attn, cfg, self.ln1(x), cache, pos,
+                                window=window)
+        return self._ffn(cfg, x + h)[0]
 
 
 class DecoderLM(nn.Module):
@@ -96,11 +128,14 @@ class DecoderLM(nn.Module):
         return cfg
 
     def backbone(self, cfg, x, positions, *, window=0):
-        """The layer stack over x (B, S, D) -> (x, aux); aux is 0 for the
-        dense family (the JAX package's MoE router loss)."""
+        """The layer stack over x (B, S, D) -> (x, aux); aux is the sum of
+        the layers' router losses (0 in the dense family)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.layers:
-            x = block(cfg, x, positions, window=window)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = block(cfg, x, positions, window=window)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def hidden(self, batch, *, cfg=None, window=0):
         """Final hidden states after ``ln_f``: (x (B, S, D), aux)."""
@@ -117,9 +152,29 @@ class DecoderLM(nn.Module):
         """``batch["tokens"]`` (B, S) ints -> (logits (B, S, V) in bf16,
         aux)."""
         x, aux = self.hidden(batch, cfg=cfg, window=window)
-        logits = (self.embed.unembed(x) if self.unembed is None
-                  else self.unembed(x))
-        return logits, aux
+        return self.logits(x), aux
+
+    def logits(self, x):
+        """Tied logits, or the ``unembed`` map: x (..., D) -> (..., V)."""
+        return (self.embed.unembed(x) if self.unembed is None
+                else self.unembed(x))
+
+    def decode_step(self, state, tokens, pos, *, cfg=None, window=0):
+        """One decode step: ``tokens`` (B, 1) ints at absolute positions
+        ``pos`` (B,) -> (logits (B, 1, V), state).
+
+        ``state`` is :func:`init_decode_state`'s, updated IN PLACE and
+        returned.
+        """
+        cfg = self._config(cfg)
+        device = self.embed.table.device
+        tokens = torch.as_tensor(tokens, device=device)
+        pos = torch.as_tensor(pos, device=device)
+        x = self.embed(tokens)
+        kv = state["kv"]
+        for block, k, v in zip(self.layers, kv["k"], kv["v"]):
+            x = block.decode(cfg, x, {"k": k, "v": v}, pos, window=window)
+        return self.logits(self.ln_f(x)), state
 
 
 def init_params(cfg, *, generator: torch.Generator | None = None,
@@ -129,10 +184,12 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
 
     The same tensors, shapes and distributions: ``fan_in ** -0.5`` normal
     weights, a 0.02-normal embedding table, RMSNorm scales of ones and
-    zero biases.  The draws come from ``generator`` (a ``torch.Generator``
-    on ``device``), so the numbers differ from the JAX package's.  Matmul
-    weights, biases and the table are stored in ``dtype`` (bf16 by
-    default, see ``layers``); RMSNorm scales in float32.
+    zero biases; in the moe family the router and experts of
+    ``models/moe.py``.  The draws come from ``generator`` (a
+    ``torch.Generator`` on ``device``), so the numbers differ from the JAX
+    package's.  Matmul weights (the experts' too), biases and the table
+    are stored in ``dtype`` (bf16 by default, see ``layers``); RMSNorm
+    scales and the router in float32.
     ``device="cuda"`` raises without a GPU; ``"meta"`` builds the shapes
     alone and needs no generator.
     """
@@ -142,3 +199,16 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
         raise ValueError("init_params needs a torch.Generator on the "
                          "model's device")
     return DecoderLM(cfg, generator=generator, device=device, dtype=dtype)
+
+
+def init_decode_state(cfg, batch: int, cache_len: int, *, device="cuda",
+                      dtype: torch.dtype = layers.COMPUTE_DTYPE) -> dict:
+    """The decode state, zeros: ``{"kv": {"k", "v"}}``, each (n_layers,
+    batch, cache_len, Hkv, Dh) in ``dtype`` (bf16 as in the JAX package),
+    layer axis first as the JAX package stacks it.  ``device="cuda"``
+    raises without a GPU."""
+    check_family(cfg)
+    kv = init_kv_cache(cfg, cfg.n_layers * batch, cache_len, dtype,
+                       device=device_of(device))
+    return {"kv": {name: t.view(cfg.n_layers, batch, *t.shape[1:])
+                   for name, t in kv.items()}}

@@ -32,6 +32,11 @@ of parts of the rows add up to one launch's; a fit on 2 ranks (gloo over
 CUDA tensors) equals the fit on 1 (NCCL) in every field; sharded serving
 gives the unsharded margins.  The ranks are started by
 ``launch.distributed.run`` from functions at the top of this file.
+
+Decode and the moe family: SMOKE decode (dense and moe, with and without
+a ring buffer) and the MoE layer on the card against the CPU, float32,
+within 2e-4; ``sort`` dispatch equal to ``onehot`` on the card where
+nothing is dropped.
 """
 
 import dataclasses
@@ -48,9 +53,10 @@ from repro_torch.core import proposal, sketch
 from repro_torch.core.proposal import random_candidates
 from repro_torch.kernels import flash_attention as flash, hist, ops, ref, \
     split_gain, traverse
+from repro_torch.launch import serve
 from repro_torch.launch.serve_gbdt import synthetic_gbdt
 from repro_torch.launch.steps import make_prefill_step
-from repro_torch.models import init_params
+from repro_torch.models import init_decode_state, init_params, moe
 
 
 @pytest.fixture
@@ -914,3 +920,124 @@ def test_prefill_on_card_matches_cpu(cuda, attn_impl):
     assert flash.launches_by_variant["wgmma_bf16"] - before_wgmma == want
     on_cpu = step(model.to("cpu"), {"tokens": tokens}).float()
     torch.testing.assert_close(card, on_cpu, rtol=3e-2, atol=3e-2)
+
+
+# --------------------------------------------------------------------------
+# decode and the moe family
+# --------------------------------------------------------------------------
+
+def _card_and_cpu(cfg, seed=0):
+    """The same model on the card (bf16 storage) and on the CPU (float32
+    storage: the bf16 weights widened exactly)."""
+    card = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    host = init_params(cfg, device="meta", dtype=torch.float32)
+    host.load_state_dict({k: v.to("cpu", torch.float32) for k, v in
+                          card.state_dict().items()}, assign=True)
+    return card, host
+
+
+def _float32_decode(model, cfg, state, tokens, pos, *, window=0):
+    """A decode step with float32 activations: the embedding widened, then
+    each block's decode over ``state`` (updated in place), ``ln_f`` and
+    the logits, as ``decode_step`` runs them in bf16."""
+    with torch.inference_mode():
+        device = model.embed.table.device
+        x = model.embed(torch.as_tensor(tokens, device=device),
+                        dtype=torch.float32)
+        pos = torch.as_tensor(pos, device=device)
+        for block, k, v in zip(model.layers, state["kv"]["k"],
+                               state["kv"]["v"]):
+            x = block.decode(cfg, x, {"k": k, "v": v}, pos, window=window)
+        return model.logits(model.ln_f(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["glm4-9b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("window,steps,cache_len", [(0, 16, 19), (8, 20, 8)],
+                         ids=["window0", "ring-wrap"])
+def test_decode_on_card_matches_cpu(cuda, name, window, steps, cache_len):
+    """SMOKE decode, teacher-forced, rows at different positions, float32
+    activations and caches: every step's logits within 2e-4 abs and rel of
+    the CPU's, the caches too, the same slots written (under window 8 over
+    20 tokens the ring buffer wraps twice); no kernel of the port runs."""
+    cfg = get_config(name, smoke=True)
+    card, host = _card_and_cpu(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, steps)))
+    offsets = torch.tensor([0, 3])
+    states = {dev: init_decode_state(cfg, 2, cache_len, device=dev,
+                                     dtype=torch.float32)
+              for dev in ("cuda", "cpu")}
+    before = flash.launches
+    for t in range(steps):
+        out = {}
+        for dev, m in (("cuda", card), ("cpu", host)):
+            out[dev] = _float32_decode(m, cfg, states[dev],
+                                       tokens[:, t:t + 1], t + offsets,
+                                       window=window)
+        torch.testing.assert_close(out["cuda"].cpu(), out["cpu"],
+                                   rtol=2e-4, atol=2e-4)
+    assert flash.launches == before
+    for key in ("k", "v"):
+        got, want = states["cuda"]["kv"][key].cpu(), states["cpu"]["kv"][key]
+        assert torch.equal(got != 0, want != 0)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_generate_on_card(cuda):
+    """``serve.generate`` at SMOKE size on the card: bf16 greedy decode,
+    the first token the argmax of the last prompt position, no flash
+    launch; the prompts are the CPU generator's, as on the CPU."""
+    before = flash.launches
+    run = serve.generate("glm4-9b", smoke=True, batch=2, prompt_len=8,
+                         gen=4)
+    assert flash.launches == before
+    assert run.tokens.device.type == "cuda" and run.tokens.shape == (2, 4)
+    assert torch.equal(run.tokens[:, 0], run.last_logits[:, -1].argmax(-1))
+    on_cpu = serve.generate("glm4-9b", smoke=True, batch=2, prompt_len=8,
+                            gen=4, device="cpu")
+    assert torch.equal(run.prompts.cpu(), on_cpu.prompts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.25, 0.5])
+def test_moe_layer_on_card_matches_cpu(cuda, capacity_factor):
+    """The SMOKE MoE layer on the card and on the CPU, float32: outputs
+    within 2e-4 abs and rel, aux within 1e-6, the same dropped count (none
+    at 8.0; half the assignments at 0.5)."""
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b", smoke=True),
+                              capacity_factor=capacity_factor)
+    card_m = moe.MoE(cfg, generator=torch.Generator(device="cuda").manual_seed(
+        2), device="cuda", dtype=torch.float32)
+    host_m = moe.MoE(cfg, device="meta", dtype=torch.float32)
+    host_m.load_state_dict({k: v.cpu() for k, v in card_m.state_dict()
+                            .items()}, assign=True)
+    x = torch.randn((2, 32, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    y_card, aux_card = moe.moe_layer(card_m, cfg, x.cuda())
+    y_cpu, aux_cpu = moe.moe_layer(host_m, cfg, x)
+    torch.testing.assert_close(y_card.cpu(), y_cpu, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(aux_card.cpu(), aux_cpu, rtol=1e-6, atol=0)
+    dropped = int(card_m.n_dropped)
+    assert dropped == int(host_m.n_dropped)
+    if capacity_factor == 8.0:
+        assert dropped == 0
+    if capacity_factor == 0.5:
+        assert dropped >= 64          # 4 experts x 16 slots for 128
+
+
+@pytest.mark.cuda
+def test_moe_sort_equals_onehot_on_card(cuda):
+    """With room for every assignment, ``sort`` and ``onehot`` dispatch
+    give the same bf16 prefill logits on the card, bit for bit."""
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b", smoke=True),
+                              capacity_factor=8.0)
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device=cuda)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 128))
+    out = {d: make_prefill_step(dataclasses.replace(cfg, moe_dispatch=d))(
+        model, {"tokens": tokens}) for d in ("onehot", "sort")}
+    assert torch.equal(out["onehot"], out["sort"])
+    assert bool(torch.isfinite(out["sort"]).all())

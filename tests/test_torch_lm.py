@@ -350,7 +350,8 @@ def test_configs_are_copies(name):
 
 
 @pytest.mark.parametrize("name", [n for n in ARCH_NAMES
-                                  if jax_config(n).family != "dense"])
+                                  if jax_config(n).family not in ("dense",
+                                                                  "moe")])
 def test_other_families_raise_not_implemented(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(get_config(name, smoke=True), device="meta")
