@@ -150,11 +150,13 @@ Phases, each printing one JSON line:
    before its product with V); and the prefills' own shapes, causal,
    bf16: glm4-9b's, q (2, 32, 4096, 128), k/v (2, 2, 4096, 128), and
    deepseek-moe-16b's (MHA), q, k, v (2, 16, 4096, 128), each a launch of
-   the Hopper kernel;
-19. attn_time -- the kernel at that shape with CUDA events, beside the
-   plain version, ``F.scaled_dot_product_attention`` (the library
-   yardstick, never called by the port) and the bound; its TFLOP/s and
-   its share of the bound;
+   the Hopper kernel; and zamba2-2.7b's (MHA at head dim 80), q, k, v (2,
+   32, 4096, 80), a launch of the CUDA-core bf16 kernel;
+19. attn_time -- the kernel at glm4-9b's and at zamba2-2.7b's shapes
+   with CUDA events, beside the plain version,
+   ``F.scaled_dot_product_attention`` (the library yardstick, never
+   called by the port) and the bound; its TFLOP/s and its share of the
+   bound;
 20. prefill -- glm4-9b at full width and depth (40 layers, random bf16
    weights from a seeded generator on the card) through
    ``make_prefill_step``: one warm-up request, then 4 requests of 2 x
@@ -226,19 +228,69 @@ Phases, each printing one JSON line:
    assignments of each layer equal (capacity factor 1.25); on the card
    ``onehot`` and ``sort`` dispatch give equal logits at capacity factor
    8.0;
-29. total -- the script's seconds; kernels -- one line listing every
+29. ssm_check -- xlstm-125m at full width with 8 layers (2 groups), the
+   card against the port on the CPU with the same weights and float32
+   activations: each block of the prefill over 1 x 512 tokens (2 chunks
+   of 256), run on the card from the CPU's input to it, within 2e-4 abs
+   and rel; the logits within 2e-4, or within 4 times the model's own
+   response to a rounding at each block where that is larger (the CPU's
+   logits with every block's input moved by one float32 step: at random
+   init the mLSTM's normalised outputs carry a rounding some 30-fold a
+   layer, and the card reorders every sum besides); the bf16 prefill step finite; on the card the decode
+   path over the same 512 tokens (the serving prefill, token by token)
+   against the chunked prefill's logits within the JAX package's
+   chunked-vs-sequential tolerance (rtol 2e-2, atol 2e-3), every logit
+   finite (the JAX package's mLSTM prefill is NaN at this width: ROADMAP,
+   Reference conditions); then 16 decode steps from that state on both
+   devices: every step's logits and the recurrent states as the
+   prefill's logits;
+30. hybrid_check -- the same for zamba2-2.7b with 12 layers (2 groups,
+   ``attn_impl="pallas"``): the shared block launches the flash kernel
+   once a group, on the CUDA-core float32 kernel in the float32 prefill
+   and on the bf16 one (head dim 80) in the bf16 step; the Mamba states
+   and the per-group KV caches within 2e-4, the same slots written;
+31. hybrid_decode -- ``serve.generate("zamba2-2.7b", smoke=False, ...)``
+   with decode's arguments, at full width and depth (54 layers): as
+   ``decode`` (the prefill-into-cache seconds, step p50, tokens/s, peak,
+   a profiled step's device time and idle share, no kernel launch of the
+   port, the prompt logits under the prefill contract);
+32. hybrid_prefill -- its model through ``make_prefill_step``: one
+   warm-up and 4 requests of 2 x 4096 tokens (glm4-9b's cut); p50,
+   tokens/s, peak, 9 flash launches a request (one a group), all on the
+   CUDA-core bf16 kernel; one request's device time by group (the chunked
+   SSD scan, ``ssd_scan``: ``ssm.chunked_decay_attention``; flash; GEMMs;
+   the rest) and the idle share;
+33. hybrid_long -- the serve step at the dry-run's ``long_500k``: batch 1
+   at position 524 287 of a 524 288-slot cache a group (a recurrent arch
+   has no window), the caches seeded bf16 and the Mamba states float32
+   (48.39 GB of state), the peak reckoned first (the slots halved until
+   it fits, each cut listed); 2 warm-up and 5 timed steps: p50, peak, the
+   bytes bound (weights and state read once), a profiled step's device
+   time by group (``decode_attention``) and idle share;
+34. ssm_decode -- ``serve.generate("xlstm-125m", smoke=False, ...)`` as
+   ``decode``, at full width and depth (12 layers), no kernel launch;
+35. ssm_prefill -- its model through ``make_prefill_step``: one warm-up
+   and 2 requests of 2 x 4096 tokens; p50, tokens/s, peak, no flash
+   launch; a request of 2 x 512 tokens (the sLSTM loop's ~200 000 launches
+   at 2 x 4096 take the profiler minutes) profiled by group (the sLSTM
+   time loop, ``slstm_scan``; ``ssd_scan``; GEMMs; the rest), the labels'
+   host time, the idle share against the same request unprofiled;
+36. total -- the script's seconds; kernels -- one line listing every
    ported kernel with its launches,
    error, times, bound, launch floor and ``deterministic`` flag (and for
-   flash attention the variant, its SASS counts and its launches on the
-   prefill, moe_prefill and both decode paths; for the histogram and
+   flash attention the variant, each variant's time at its prefill's
+   shape (``wgmma_bf16`` at glm4-9b's, ``cuda_core_bf16`` at zamba2's),
+   its SASS counts and its launches on every prefill and decode path;
+   for the histogram and
    split gain also their launches on each path of phases 10, 11, 14
    and 15, per rank on the distributed paths).  The
    per-tree traversal is on no path any more (``launches`` 0,
    ``on_main_path`` false): it is listed as the counterpart of
    ``ops.traverse_chunk``.
 
-Each LM is freed before the next is built (glm4-9b's 17.6 GB and
-deepseek-moe-16b's 33.3 GB of weights are never resident together).
+Each LM is freed before the next is built (glm4-9b's 17.6 GB,
+deepseek-moe-16b's 33.3 GB and zamba2-2.7b's 4.6 GB of weights are never
+resident together).
 The new phases print their seconds.  Precision: float32 matrix products
 in full float32 (``allow_tf32`` off) and bf16 products reduced in float32
 (``allow_bf16_reduced_precision_reduction`` off), set and printed first.
@@ -555,22 +607,100 @@ def float32_logits(model, cfg, tokens) -> torch.Tensor:
         x = model.embed(t, dtype=torch.float32)
         positions = torch.arange(t.shape[1], device=x.device).expand(*t.shape)
         x, _ = model.backbone(cfg, x, positions)
-        return model.embed.unembed(model.ln_f(x)).float().cpu()
+        return model.logits(model.ln_f(x)).float().cpu()
 
 
 def float32_decode(model, cfg, state, tokens, pos, *, window=0):
     """A decode step with float32 activations: the embedding widened, then
-    each block's decode over ``state`` (updated in place), ``ln_f`` and
-    the logits, as ``decode_step`` runs them in bf16."""
+    the layer stack's decode over ``state`` (updated in place), ``ln_f``
+    and the logits, as ``decode_step`` runs them in bf16."""
     with torch.inference_mode():
         device = model.embed.table.device
         x = model.embed(torch.as_tensor(tokens, device=device),
                         dtype=torch.float32)
-        pos = torch.as_tensor(pos, device=device)
-        for block, k, v in zip(model.layers, state["kv"]["k"],
-                               state["kv"]["v"]):
-            x = block.decode(cfg, x, {"k": k, "v": v}, pos, window=window)
+        x = model.decode_backbone(cfg, x, state,
+                                  torch.as_tensor(pos, device=device),
+                                  window=window)
         return model.logits(model.ln_f(x)).float().cpu()
+
+
+def _stack_blocks():
+    """(owner, name) of the functions that run one block of the ssm and
+    hybrid stacks, over the full sequence and over one token; each takes
+    the block's input x as its third argument."""
+    from repro_torch.models import model as model_lib, ssm
+    return [(ssm.MLSTM, "forward"), (ssm.SLSTM, "forward"),
+            (ssm.Mamba2, "forward"), (model_lib.DecoderBlock, "forward"),
+            (model_lib.DecoderBlock, "decode"), (ssm, "mlstm_step"),
+            (ssm, "slstm_step"), (ssm, "mamba2_step")]
+
+
+@contextlib.contextmanager
+def rounded_blocks():
+    """Run the ``with`` block with every block's input x moved by one
+    float32 rounding step (2^-23 of each value, a seeded random sign):
+    how far the model itself carries the roundings of its blocks, the
+    scale of the float32 differences that two devices' orders of
+    operations leave."""
+    saved = []
+    for owner, name in _stack_blocks():
+        real = getattr(owner, name)
+
+        def wrapped(a, b, x, *rest, _real=real, **kw):
+            sign = torch.randint(0, 2, x.shape, generator=torch.Generator()
+                                 .manual_seed(0)).to(x.device) * 2 - 1
+            return _real(a, b, x * (1 + 2.0 ** -23 * sign), *rest, **kw)
+        saved.append((owner, name, real))
+        setattr(owner, name, wrapped)
+    try:
+        yield
+    finally:
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+
+
+def _tensors(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def per_block_check(phase, card, host, cfg, tokens) -> dict:
+    """Each block of ``host``'s float32 prefill over ``tokens`` (its
+    output and, in the ssm blocks, its final state) against the same
+    block of ``card`` run on the card from the CPU's input to it: within
+    2e-4 abs and rel.  Returns the largest error a block kind."""
+    from repro_torch.models import model as model_lib, ssm
+    kinds = (ssm.MLSTM, ssm.SLSTM, ssm.Mamba2, model_lib.DecoderBlock)
+    records = []
+    hooks = [mod.register_forward_hook(
+        lambda m, args, kwargs, out, name=name: records.append(
+            (name, args, kwargs, out)), with_kwargs=True)
+        for name, mod in host.named_modules() if isinstance(mod, kinds)]
+    try:
+        float32_logits(host, cfg, tokens)
+    finally:
+        for h in hooks:
+            h.remove()
+    on_card = dict(card.named_modules())
+    worst: dict = {}
+
+    def to_card(a):
+        return a.cuda() if isinstance(a, torch.Tensor) else a
+    with torch.inference_mode():
+        for name, args, kwargs, out in records:
+            got = on_card[name](*map(to_card, args),
+                                **{k: to_card(v) for k, v in kwargs.items()})
+            kind = type(on_card[name]).__name__
+            for g, w in zip(_tensors(got), _tensors(out)):
+                ok, err = within_f32(g, w)
+                check(ok, f"{phase}: block {name} ({kind}) on the card, from "
+                      f"the CPU's input, differs from the CPU's beyond "
+                      f"{ATTN_F32_TOL} (max_abs_err={err})")
+                worst[kind] = max(worst.get(kind, 0.0), err)
+    return worst
 
 
 def argmax_agreement(got, want) -> tuple[float, torch.Tensor, torch.Tensor]:
@@ -804,6 +934,28 @@ DIST_SERVE_SHARDS = 2
 EXAMPLE_WORKERS = 8
 
 
+def _counters() -> tuple:
+    from repro_torch.kernels import flash_attention as flash, hist, \
+        split_gain, traverse
+    return ((hist, "launches"), (hist, "left_launches"),
+            (split_gain, "launches"), (traverse, "launches"),
+            (traverse, "forest_launches"), (flash, "launches"))
+
+
+def reset_counts() -> None:
+    """Every launch count of the port to 0 (flash's by variant too)."""
+    from repro_torch.kernels import flash_attention as flash
+    for mod, name in _counters():
+        setattr(mod, name, 0)
+    for name in flash.launches_by_variant:
+        flash.launches_by_variant[name] = 0
+
+
+def read_counts() -> list:
+    """[hist, hist_left, split_gain, traverse, forest_sum, flash]."""
+    return [getattr(mod, name) for mod, name in _counters()]
+
+
 def training_counts() -> dict:
     from repro_torch.kernels import hist, split_gain
     return {"hist_levels": hist.launches,
@@ -1026,6 +1178,413 @@ def dist_rank(tasks: tuple) -> dict:
     return {task: fns[task]() for task in tasks}
 
 
+# ---------------------------------------------------------------------------
+# the ssm and hybrid families (xlstm-125m, zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, HYBRID_ARCH = "xlstm-125m", "zamba2-2.7b"
+# ssm_check / hybrid_check: 2 chunks of 256 tokens, then decode steps
+RECURRENT_TOKENS, RECURRENT_STEPS = 512, 16
+# the JAX package's chunked-vs-sequential tolerance (tests/test_ssm.py)
+SSM_SEQ_TOL = {"rtol": 2e-2, "atol": 2e-3}
+SSM_REQUESTS = 2
+# xlstm's profiled request: 2 x 512 tokens (its sLSTM loop launches ~16
+# kernels a token a layer, and the profiler takes minutes over 2 x 4096)
+SSM_PROFILE_SEQ = 512
+# long_500k: batch 1 at position 524 287; a recurrent arch has no window
+LONG_LEN, LONG_WARMUP, LONG_STEPS = 524_288, 2, 5
+# the card reorders every sum of every product, where ``rounded_blocks``
+# rounds each block's input once: a float32 difference through the stack
+# is held to this many times the CPU's response to the latter
+NOISE_FACTOR = 4
+
+
+def prompt_contract(phase: str, model, cfg, run) -> dict:
+    """The decode path's logits at the prompt positions of ``run`` (a
+    ``serve.generate``: the prompt once more through
+    ``prefill_into_cache``, keeping every position's logits) against the
+    card's own prefill step over the prompt, under the prefill's
+    contract: each against the float32 logits, the decode path's error at
+    most 1.25 times the prefill step's, the two within twice that error,
+    the argmax differing only at near ties."""
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.launch.steps import make_prefill_step
+    s, gen = run.prompts.shape[1], run.tokens.shape[1]
+    prefill_logits = make_prefill_step(cfg)(
+        model, {"tokens": run.prompts}).float().cpu()
+    f32 = float32_logits(model, cfg, run.prompts)
+    seen: list = []
+    last, _, _ = serve_lm.prefill_into_cache(
+        model, cfg, {"tokens": run.prompts}, s + gen, prompt_logits=seen)
+    check(torch.equal(last, run.last_logits),
+          f"{phase}: the prompt's second pass into a cache differs from the "
+          "first")
+    dec = torch.cat(seen, 1).float().cpu()
+    prefill_err = float((prefill_logits - f32).abs().max())
+    dec_err = float((dec - f32).abs().max())
+    dec_diff = float((dec - prefill_logits).abs().max())
+    agree, differ, _ = argmax_agreement(dec, prefill_logits)
+    _, _, gap_f32 = argmax_agreement(dec, f32)
+    ties_ok = bool((gap_f32[differ].abs() <= 2 * prefill_err).all())
+    check(dec_diff <= 2 * prefill_err and dec_err <= 1.25 * prefill_err
+          and ties_ok,
+          f"{phase}: prompt logits {dec_diff} from the prefill step's (bound "
+          f"{2 * prefill_err}: twice its bf16 error against the float32 "
+          f"logits); the decode path's error {dec_err} (bound "
+          f"{1.25 * prefill_err}); argmax agreement {agree}, near ties "
+          f"{ties_ok}")
+    return {"max_abs_err": dec_diff, "bound": 2 * prefill_err,
+            "decode_err_vs_f32": dec_err, "prefill_err_vs_f32": prefill_err,
+            "argmax_agreement": agree}
+
+
+def recurrent_check(phase: str, arch: str, n_layers: int, seed: int,
+                    rng) -> dict:
+    """``arch`` at full width with ``n_layers`` (2 groups), the card
+    against the port on the CPU with the same weights, float32
+    activations: the prefill over 1 x 512 tokens (2 chunks; zamba2's
+    shared block through the flash kernel, ``attn_impl="pallas"``, once a
+    group on the CUDA-core float32 kernel), each block from the CPU's
+    input to it within 2e-4 abs and rel, the logits within 2e-4 or, where
+    the model itself carries the roundings of its blocks further
+    (``rounded_blocks``), within ``NOISE_FACTOR`` times that; the bf16 prefill step finite
+    (once a group on the bf16 kernel);
+    on the card the decode path over the same 512 tokens (the serving
+    prefill, token by token) against the chunked prefill's logits within
+    the JAX package's chunked-vs-sequential tolerance, every logit
+    finite; then 16 decode steps from that state on both devices: every
+    step's logits, the recurrent states and the KV caches as the prefill's
+    logits, the same slots written."""
+    from repro_torch.checkpoint import npz
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_decode_state, init_params
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              attn_impl="pallas")
+    card = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    host = init_params(cfg, device="meta", dtype=torch.float32)
+    host.load_state_dict({k: v.to("cpu", torch.float32) for k, v in
+                          card.state_dict().items()}, assign=True,
+                         strict=True)
+    n, steps = RECURRENT_TOKENS, RECURRENT_STEPS
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           size=(1, n + steps)))
+    prompt = tokens[:, :n]
+    groups = n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    reset_counts()
+    card_f32 = float32_logits(card, cfg, prompt)
+    f32_launches = dict(flash.launches_by_variant)
+    check(sum(read_counts()) == groups
+          and f32_launches["cuda_core_f32"] == groups,
+          f"{phase}: float32 prefill launches {read_counts()} "
+          f"({f32_launches}), want {groups} on cuda_core_f32 and no other")
+    host_f32 = float32_logits(host, cfg, prompt)
+    # each block from the same input: the card's rounding alone
+    block_err = per_block_check(phase, card, host, cfg, prompt)
+    # through the stack the model carries each block's rounding further:
+    # the CPU's logits again with every block's input moved by one
+    # rounding step; where that passes 2e-4 the card is held within
+    # NOISE_FACTOR times it
+    with rounded_blocks():
+        noise = float((float32_logits(host, cfg, prompt)
+                       - host_f32).abs().max())
+    ok, f32_err = within_f32(card_f32, host_f32)
+    check((ok or f32_err <= NOISE_FACTOR * noise)
+          and bool(torch.isfinite(card_f32).all()),
+          f"{phase}: float32 prefill logits on the card differ from the "
+          f"CPU's beyond {ATTN_F32_TOL} and beyond {NOISE_FACTOR} times the "
+          f"model's own response to a rounding at each block ({noise}) "
+          f"(max_abs_err="
+          f"{f32_err}), or are not finite")
+    reset_counts()
+    bf16 = make_prefill_step(cfg)(card, {"tokens": prompt})
+    torch.cuda.synchronize()
+    bf16_launches = dict(flash.launches_by_variant)
+    bf16_variant = flash.variant(torch.bfloat16, cfg.head_dim)
+    check(bf16.shape == (1, n, cfg.vocab_size)
+          and bool(torch.isfinite(bf16).all())
+          and read_counts()[-1] == groups
+          and bf16_launches[bf16_variant] == groups,
+          f"{phase}: bf16 prefill {tuple(bf16.shape)}, not finite, or "
+          f"launches {bf16_launches}, want {groups} on {bf16_variant}")
+    del bf16
+    # the serving prefill: the decode path over the prompt, on the card
+    state = init_decode_state(cfg, 1, n + steps, device="cuda",
+                              dtype=torch.float32)
+    seq = torch.cat([float32_decode(card, cfg, state, prompt[:, t:t + 1],
+                                    [t]) for t in range(n)], 1)
+    seq_err = float((seq - card_f32).abs().max())
+    check(bool(torch.isfinite(seq).all()) and torch.allclose(
+              seq, card_f32, **SSM_SEQ_TOL),
+          f"{phase}: the decode path's logits over the prompt differ from "
+          f"the chunked prefill's beyond {SSM_SEQ_TOL} (max_abs_err="
+          f"{seq_err}), or are not finite")
+    # 16 steps from that state on both devices, and on the CPU once more
+    # with every block's input moved by one rounding step (the noise)
+    host_state, moved_state = (npz.decode_state_from_numpy(
+        cfg, npz.decode_state_to_numpy(state), device="cpu")
+        for _ in range(2))
+    got, want, moved = [], [], []
+    for t in range(n, n + steps):
+        tok = tokens[:, t:t + 1]
+        got.append(float32_decode(card, cfg, state, tok, [t]))
+        want.append(float32_decode(host, cfg, host_state, tok, [t]))
+        with rounded_blocks():
+            moved.append(float32_decode(host, cfg, moved_state, tok, [t]))
+    got, want, moved = (torch.cat(x, 1) for x in (got, want, moved))
+    step_noise = float((moved - want).abs().max())
+    ok, step_err = within_f32(got, want)
+    check((ok or step_err <= NOISE_FACTOR * step_noise)
+          and bool(torch.isfinite(got).all()),
+          f"{phase}: {steps} decode steps: logits on the card differ from the "
+          f"CPU's beyond {ATTN_F32_TOL} and {NOISE_FACTOR} x {step_noise} "
+          f"(max_abs_err="
+          f"{step_err})")
+    state_err, state_noise = {}, {}
+    want_state = npz.flat_state(host_state)
+    moved = npz.flat_state(moved_state)
+    for key, got in npz.flat_state(state).items():
+        got, want = got.cpu(), want_state[key]
+        ok, err = within_f32(got, want)
+        state_err[key] = err
+        state_noise[key] = float((moved[key] - want).abs().max())
+        check((ok or err <= NOISE_FACTOR * state_noise[key])
+              and torch.equal(got != 0, want != 0),
+              f"{phase}: state {key} on the card differs from the CPU's "
+              f"beyond {ATTN_F32_TOL} and {NOISE_FACTOR} x {state_noise[key]} "
+              f"(max_abs_err={err}) or writes other slots")
+    out = dict(arch=arch, n_layers=n_layers, tokens=[1, n],
+               decode_steps=steps, weights=f"random bf16, seed {seed}",
+               flash_launches_f32=f32_launches,
+               flash_launches_bf16=bf16_launches,
+               f32_logits_max_abs_err=f32_err,
+               f32_tolerance={"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL,
+                              "or_max_abs": NOISE_FACTOR * noise},
+               block_max_abs_err=block_err,
+               cpu_response_to_block_rounding=noise,
+               decode_vs_prefill_max_abs_err=seq_err,
+               decode_vs_prefill_tolerance=SSM_SEQ_TOL,
+               step_logits_max_abs_err=step_err,
+               step_cpu_response_to_block_rounding=step_noise,
+               state_max_abs_err=state_err,
+               state_cpu_response_to_block_rounding=state_noise,
+               all_finite=True, seconds=time.perf_counter() - t_phase)
+    emit(phase, **out)
+    del card, host, state, host_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_phase(phase: str, arch: str):
+    """``serve.generate(arch, smoke=False)`` with decode's arguments, at
+    full width and depth: the prefill-into-cache seconds, each step's ms,
+    tokens/s, peak memory, no launch of a kernel of the port, the prompt
+    contract, one profiled step's device time and idle share.  Returns
+    (the run, the launch counts)."""
+    from repro_torch.launch import serve as serve_lm
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = serve_lm.generate(arch, smoke=False, **DECODE)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cfg, model = run.cfg, run.model
+    b, s, gen = DECODE["batch"], DECODE["prompt_len"], DECODE["gen"]
+    check(sum(counts) == 0 and run.tokens.shape == (b, gen)
+          and run.last_logits.shape == (b, 1, cfg.vocab_size)
+          and bool(torch.isfinite(run.last_logits).all())
+          and torch.equal(run.tokens[:, 0],
+                          run.last_logits[:, -1].argmax(-1)),
+          f"{phase}: tokens {tuple(run.tokens.shape)}, last logits not "
+          f"finite or not the first token's, or kernels of the port "
+          f"launched: {counts}")
+    contract = prompt_contract(phase, model, cfg, run)
+    busy, ops = serve_step_profile(model, cfg, b, s + gen, s)
+    emit(phase, arch=arch, n_layers=cfg.n_layers,
+         params=sum(p.numel() for p in model.parameters()), **DECODE,
+         cache_len=s + gen, weights="random bf16, seed 0",
+         prefill_into_cache_seconds=run.prefill_seconds,
+         step_ms=[t * 1e3 for t in run.step_seconds],
+         step_p50_ms=run.step_p50_ms, tokens_per_s=run.tokens_per_s,
+         device_ms_per_step=busy,
+         device_idle_share=1 - busy / run.step_p50_ms, by_op=ops,
+         max_memory_allocated_gb=peak / 1e9, flash_launches=counts[-1],
+         tokens=run.tokens.tolist(), prompt_logits_vs_prefill=contract,
+         seconds=time.perf_counter() - t_phase)
+    return run, counts
+
+
+def prefill_phase(phase: str, model, cfg, rng, *, labels, variant) -> int:
+    """``make_prefill_step`` at full width and depth: one warm-up, then
+    ``LM_REQUESTS`` (zamba2) or ``SSM_REQUESTS`` (xlstm) requests of 2 x
+    4096 tokens: p50 ms, tokens/s, peak memory, the flash launches (a
+    shared-block group's one a request, all on ``variant``; none in the
+    ssm family); one request's device time by group (``labels``: the
+    ``record_function`` ranges around ``ssm`` functions, beside flash,
+    GEMMs and the rest), the labels' host ms, the idle share (xlstm's
+    request profiled at ``SSM_PROFILE_SEQ`` tokens a row, against an
+    unprofiled request of that length).  Returns the flash launches of
+    the timed requests (``variant`` None: there must be none)."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.steps import make_prefill_step
+    t_phase = time.perf_counter()
+    requests = LM_REQUESTS if cfg.family == "hybrid" else SSM_REQUESTS
+    per_request = (cfg.n_layers // cfg.attn_every
+                   if cfg.family == "hybrid" else 0)
+    step = make_prefill_step(cfg)
+    batches = [rng.integers(0, cfg.vocab_size, size=(LM_BATCH, LM_SEQ))
+               for _ in range(requests + 1)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logits = step(model, {"tokens": batches[0]})            # warm-up
+    torch.cuda.synchronize()
+    del logits
+    walls = []
+    reset_counts()
+    for tokens in batches[1:]:
+        t0 = time.perf_counter()
+        logits = step(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
+              and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()),
+              f"{phase} logits {tuple(logits.shape)} {logits.dtype}, or not "
+              "finite")
+        del logits
+    counts = read_counts()
+    by_variant = dict(flash.launches_by_variant)
+    check(counts[-1] == per_request * requests
+          and (variant is None or by_variant[variant] == counts[-1])
+          and sum(counts[:-1]) == 0,
+          f"{phase}: {counts[-1]} flash launches for {requests} requests "
+          f"({by_variant}), want {per_request} a request, all {variant}, "
+          "and no other kernel")
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(walls))
+    names = [label for *_, label in labels]
+    profiled = batches[1][:, :LM_SEQ if cfg.family == "hybrid"
+                          else SSM_PROFILE_SEQ]
+    t0 = time.perf_counter()
+    logits = step(model, {"tokens": profiled})
+    torch.cuda.synchronize()
+    profiled_wall = time.perf_counter() - t0
+    with labelled(labels), torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        logits = step(model, {"tokens": profiled})
+        torch.cuda.synchronize()
+    del logits
+    groups, busy = device_ms_by_group(prof, names)
+    host_ms = {ev.key: ev.cpu_time_total / 1e3 for ev in prof.key_averages()
+               if ev.key in names
+               and ev.device_type == torch.autograd.DeviceType.CPU}
+    emit(phase, arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+         vocab_size=cfg.vocab_size,
+         params=sum(p.numel() for p in model.parameters()),
+         weights_gb=lm_bytes(model) / 1e9, batch=LM_BATCH, seq=LM_SEQ,
+         reduced=["shape: prefill_32k 32 x 32768 -> 2 x 4096 tokens"],
+         requests=requests, warmup_requests=1,
+         request_ms=[w * 1e3 for w in walls], p50_ms=p50 * 1e3,
+         tokens_per_s=LM_BATCH * LM_SEQ * len(walls) / sum(walls),
+         max_memory_allocated_gb=peak / 1e9, flash_launches=counts[-1],
+         flash_launches_per_request=counts[-1] / requests,
+         flash_launches_by_variant=by_variant,
+         profiled_tokens=list(profiled.shape),
+         profiled_wall_ms=profiled_wall * 1e3, device_ms_per_request=busy,
+         device_idle_share=1 - busy / (profiled_wall * 1e3),
+         by_group_ms=groups, by_group_share=shares(groups, busy),
+         label_host_ms=host_ms,
+         by_op=by_kernel(prof, 1, "request", ops=True)[:12],
+         seconds=time.perf_counter() - t_phase)
+    return counts[-1]
+
+
+def long_phase(model, cfg) -> None:
+    """The serve step at the dry-run's ``long_500k`` for the hybrid
+    family: batch 1 at position 524 287 of a 524 288-slot cache a group
+    (a recurrent arch takes no window), the caches seeded bf16 and the
+    Mamba states seeded float32; the slots halved until the reckoned
+    peak fits the card (each cut listed); 2 warm-up and 5 timed steps:
+    p50, peak, the bytes bound (weights and state read once), one
+    profiled step's device time by group and idle share."""
+    from repro_torch.checkpoint import npz
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import attention as attn_lib, init_decode_state
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    w_bytes = lm_bytes(model)
+    capacity = torch.cuda.get_device_properties(0).total_memory
+
+    def reckon(length):
+        """(state bytes, peak bytes): the weights, the state, and the
+        plain decode attention's float32 K and V of one group."""
+        shapes = init_decode_state(cfg, 1, length, device="meta")
+        st = sum(t.numel() * t.element_size()
+                 for t in npz.flat_state(shapes).values())
+        kv_f32 = 2 * length * cfg.n_kv_heads * cfg.head_dim * 4
+        return st, w_bytes + st + kv_f32
+
+    length, reduced = LONG_LEN, []
+    while reckon(length)[1] > 0.95 * capacity:
+        reduced.append(f"cache: {length} -> {length // 2} slots")
+        length //= 2
+    state_bytes, predicted = reckon(length)
+    state = init_decode_state(cfg, 1, length, device="cuda")
+    fill = torch.Generator(device="cuda").manual_seed(6)
+    for t in (*state["kv"].values(), state["mamba"]):
+        t.normal_(generator=fill)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1), generator=fill,
+                           device="cuda")
+    pos = torch.full((1,), length - 1, device="cuda")
+    serve_step = make_serve_step(cfg)
+    walls = []
+    reset_counts()
+    for i in range(LONG_WARMUP + LONG_STEPS):
+        t0 = time.perf_counter()
+        logits, state = serve_step(model, state, tokens, pos)
+        torch.cuda.synchronize()
+        if i >= LONG_WARMUP:
+            walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    check(sum(counts) == 0 and logits.shape == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"hybrid_long: logits {tuple(logits.shape)} or not finite, or "
+          f"kernels of the port launched: {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(walls))
+    with labelled([(attn_lib, "decode_attend", "decode_attention")]), \
+            torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        logits, state = serve_step(model, state, tokens, pos)
+        torch.cuda.synchronize()
+    groups, busy = device_ms_by_group(prof, ["decode_attention"])
+    bound = (w_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    emit("hybrid_long", arch=cfg.name, n_layers=cfg.n_layers, batch=1,
+         cache_len=length, pos=length - 1,
+         state="random: bf16 caches, float32 Mamba states, seed 6",
+         reduced=reduced, warmup_steps=LONG_WARMUP, steps=LONG_STEPS,
+         weights_gb=w_bytes / 1e9, state_gb=state_bytes / 1e9,
+         reckoned_peak_gb=predicted / 1e9,
+         max_memory_allocated_gb=peak / 1e9,
+         step_ms=[w * 1e3 for w in walls], step_p50_ms=p50 * 1e3,
+         bytes_bound_ms=bound, share_of_bound=bound / (p50 * 1e3),
+         device_ms_per_step=busy, device_idle_share=1 - busy / (p50 * 1e3),
+         by_group_ms=groups, by_group_share=shares(groups, busy),
+         by_op=by_kernel(prof, 1, "step", ops=True)[:10],
+         seconds=time.perf_counter() - t_phase)
+    del state, logits, prof
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1047,7 +1606,7 @@ def main() -> int:
     from repro_torch.launch import serve as serve_lm
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import attention as attn_lib, init_decode_state, \
-        init_params, layers as lm_layers, moe as moe_lib
+        init_params, layers as lm_layers, moe as moe_lib, ssm as ssm_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -1503,18 +2062,7 @@ def main() -> int:
     x_dev, y_dev = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
     x_tr, y_tr = x_dev[:TRAIN_ROWS], y_dev[:TRAIN_ROWS]
     x_ho, y_ho = x_dev[TRAIN_ROWS:], y_dev[TRAIN_ROWS:]
-    counters = (hist, "launches"), (hist, "left_launches"), \
-        (split_gain, "launches"), (traverse, "launches"), \
-        (traverse, "forest_launches"), (flash, "launches")
-
-    def reset():
-        for mod, name in counters:
-            setattr(mod, name, 0)
-        for name in flash.launches_by_variant:
-            flash.launches_by_variant[name] = 0
-
-    def read():
-        return [getattr(mod, name) for mod, name in counters]
+    reset, read = reset_counts, read_counts
 
     train_launches = {}
     forests = {}
@@ -2283,16 +2831,39 @@ def main() -> int:
     repeats["flash_attention"] = torch.equal(
         got, flash.flash_attention_cuda(q, k, v, causal=True))
     del got
-    emit("attn_check", cases=n_attn + 2, within_tolerance=True,
+    # the hybrid prefill's shape: zamba2-2.7b's MHA 32:32 at head dim 80
+    # (2560 / 32), 2 x 4096, bf16: not a wgmma head dim, so the CUDA-core
+    # kernel
+    hyb_cfg = get_config(HYBRID_ARCH)
+    hq_, hk_, hv_ = attn_case(LM_BATCH, hyb_cfg.n_heads, hyb_cfg.n_kv_heads,
+                              LM_SEQ, hyb_cfg.head_dim, torch.bfloat16)
+    hyb_variant = flash.variant(hq_.dtype, hyb_cfg.head_dim)
+    before = flash.launches_by_variant["cuda_core_bf16"]
+    got = flash.flash_attention_cuda(hq_, hk_, hv_, causal=True)
+    torch.cuda.synchronize()
+    ok, hyb_slice_err, hyb_slice_share = attn_within(got, hq_, hk_, hv_,
+                                                     causal=True)
+    check(ok and hyb_variant == "cuda_core_bf16" and got.shape == hq_.shape
+          and flash.launches_by_variant["cuda_core_bf16"] == before + 1,
+          f"flash kernel ({hyb_variant}) != plain version at the hybrid "
+          f"prefill shape {tuple(hq_.shape)} (max_abs_err={hyb_slice_err}, "
+          f"share of tolerance {hyb_slice_share}), or not one cuda_core_bf16 "
+          "launch")
+    repeats["flash_attention_cuda_core_bf16"] = torch.equal(
+        got, flash.flash_attention_cuda(hq_, hk_, hv_, causal=True))
+    del got
+    emit("attn_check", cases=n_attn + 3, within_tolerance=True,
          tolerance={"f32": {"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
                     "bf16": {"abs": ATTN_F32_TOL,
                              "rel": ATTN_F32_TOL + BF16_STEP,
                              "plus": "ref.attention_rounding_bound"}},
          max_abs_err={**attn_err, "prefill_shape_wgmma_bf16": slice_err,
-                      "moe_prefill_shape_wgmma_bf16": moe_slice_err},
+                      "moe_prefill_shape_wgmma_bf16": moe_slice_err,
+                      "hybrid_prefill_shape_cuda_core_bf16": hyb_slice_err},
          max_share_of_tolerance={
              **attn_share, "prefill_shape_wgmma_bf16": slice_share,
-             "moe_prefill_shape_wgmma_bf16": moe_slice_share},
+             "moe_prefill_shape_wgmma_bf16": moe_slice_share,
+             "hybrid_prefill_shape_cuda_core_bf16": hyb_slice_share},
          ragged={"max_abs_err": ragged_err,
                  "share_of_tolerance": ragged_share,
                  "no_mask_raises": ragged_refusal},
@@ -2319,6 +2890,33 @@ def main() -> int:
          library_tflops=attn_flops / (library_ms * 1e-3) / 1e12,
          share_of_bound=b_ms / ms, seconds=time.perf_counter() - t_phase)
     del q, k, v
+    # the same at the hybrid prefill's shape, on the CUDA-core kernel
+    t_phase = time.perf_counter()
+    hyb_ms, hyb_issue_ms = cuda_ms(lambda: flash.flash_attention_cuda(
+        hq_, hk_, hv_, causal=True), iters=10, warmup=2)
+    hyb_plain_ms, _ = cuda_ms(lambda: ref.attention_ref(
+        hq_, hk_, hv_, causal=True), iters=3, warmup=1)
+    hyb_library_ms, _ = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            hq_, hk_, hv_, is_causal=True), iters=10, warmup=2)
+    hd = hyb_cfg.head_dim
+    hb_ms, hb_by = attn_bound_ms(LM_BATCH, hyb_cfg.n_heads,
+                                 hyb_cfg.n_kv_heads, LM_SEQ, LM_SEQ, hd, 2,
+                                 True)
+    hyb_flops = LM_BATCH * hyb_cfg.n_heads * LM_SEQ * (LM_SEQ + 1) // 2 \
+        * 4 * hd
+    hyb_timing = dict(ms=hyb_ms, issue_ms=hyb_issue_ms, plain_ms=hyb_plain_ms,
+                      library_ms=hyb_library_ms, bound_ms=hb_ms,
+                      bound_by=hb_by)
+    emit("attn_time", kernel="flash_attention", variant=hyb_variant,
+         shape=dict(q=list(hq_.shape), kv=list(hk_.shape), causal=True,
+                    dtype="bf16"),
+         kernel_us=hyb_ms * 1e3, **hyb_timing,
+         tflops=hyb_flops / (hyb_ms * 1e-3) / 1e12,
+         library_tflops=hyb_flops / (hyb_library_ms * 1e-3) / 1e12,
+         bound_peak_tflops=BF16_OPS_PER_S / 1e12,
+         share_of_bound=hb_ms / hyb_ms, seconds=time.perf_counter() - t_phase)
+    del hq_, hk_, hv_
     torch.cuda.empty_cache()
 
     # 20. prefill ---------------------------------------------------------
@@ -2498,75 +3096,10 @@ def main() -> int:
     # serve.generate at full width and depth: the prompt token by token
     # through the serve step into a KV cache, then greedy decode; decode
     # attention is plain torch, so no kernel of the port runs
-    t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset()
-    run = serve_lm.generate(LM_ARCH, smoke=False, **DECODE)
-    torch.cuda.synchronize()
-    decode_counts = read()
-    check(sum(decode_counts) == 0,
-          f"decode launched kernels of the port: {decode_counts} (hist, "
-          "hist_left, split_gain, traverse, forest_sum, flash)")
-    decode_peak = torch.cuda.max_memory_allocated()
+    run, decode_counts = serve_phase("decode", LM_ARCH)
     dcfg, dmodel = run.cfg, run.model
     b, s = DECODE["batch"], DECODE["prompt_len"]
-    check(run.tokens.shape == (b, DECODE["gen"])
-          and run.last_logits.shape == (b, 1, dcfg.vocab_size)
-          and bool(torch.isfinite(run.last_logits).all()),
-          f"decode: tokens {tuple(run.tokens.shape)}, last logits "
-          f"{tuple(run.last_logits.shape)}, or not finite")
-    check(torch.equal(run.tokens[:, 0], run.last_logits[:, -1].argmax(-1)),
-          "decode: the first greedy token is not the argmax of the last "
-          "prompt position's logits")
-    # the decode path's logits at every prompt position (the prompt again
-    # through prefill_into_cache, keeping them) against the card's own
-    # prefill step over the prompt, under the prefill's contract: each
-    # measured against the float32 logits, the decode path at most 1.25
-    # times the prefill step's error, the two within twice that error,
-    # argmax differing only at near ties
-    prefill_logits = make_prefill_step(dcfg)(
-        dmodel, {"tokens": run.prompts}).float().cpu()
-    f32 = float32_logits(dmodel, dcfg, run.prompts)
-    seen: list = []
-    last, _, _ = serve_lm.prefill_into_cache(
-        dmodel, dcfg, {"tokens": run.prompts}, s + DECODE["gen"],
-        prompt_logits=seen)
-    check(torch.equal(last, run.last_logits),
-          "decode: the prompt's second pass into a cache differs from the "
-          "first")
-    dec = torch.cat(seen, 1).float().cpu()
-    del seen, last
-    prefill_err = float((prefill_logits - f32).abs().max())
-    dec_err = float((dec - f32).abs().max())
-    dec_diff = float((dec - prefill_logits).abs().max())
-    agree, differ, _ = argmax_agreement(dec, prefill_logits)
-    _, _, gap_f32 = argmax_agreement(dec, f32)
-    ties_ok = bool((gap_f32[differ].abs() <= 2 * prefill_err).all())
-    check(dec_diff <= 2 * prefill_err and dec_err <= 1.25 * prefill_err
-          and ties_ok,
-          f"decode: prompt logits {dec_diff} from the prefill step's (bound "
-          f"{2 * prefill_err}: twice its bf16 error against the float32 "
-          f"logits); the decode path's error {dec_err} (bound "
-          f"{1.25 * prefill_err}); argmax agreement {agree}, near ties "
-          f"{ties_ok}")
-    decode_busy, decode_ops = serve_step_profile(
-        dmodel, dcfg, b, s + DECODE["gen"], s)
-    emit("decode", arch=LM_ARCH, n_layers=dcfg.n_layers, **DECODE,
-         cache_len=s + DECODE["gen"], weights="random bf16, seed 0",
-         prefill_into_cache_seconds=run.prefill_seconds,
-         step_ms=[t * 1e3 for t in run.step_seconds],
-         step_p50_ms=run.step_p50_ms, tokens_per_s=run.tokens_per_s,
-         device_ms_per_step=decode_busy,
-         device_idle_share=1 - decode_busy / run.step_p50_ms,
-         by_op=decode_ops, max_memory_allocated_gb=decode_peak / 1e9,
-         flash_launches=decode_counts[-1], tokens=run.tokens.tolist(),
-         prompt_logits_vs_prefill={
-             "max_abs_err": dec_diff, "bound": 2 * prefill_err,
-             "decode_err_vs_f32": dec_err, "prefill_err_vs_f32": prefill_err,
-             "argmax_agreement": agree},
-         seconds=time.perf_counter() - t_phase)
-    del run, prefill_logits, f32, dec
+    del run
 
     # 24. decode_time -----------------------------------------------------
     # the serve step at the dry-run's decode_32k cache length, the cache
@@ -2839,7 +3372,33 @@ def main() -> int:
     del kmodel, cpu_k, roomy
     torch.cuda.empty_cache()
 
-    # 29. kernels ---------------------------------------------------------
+    # 29. ssm_check, 30. hybrid_check -------------------------------------
+    recurrent_check("ssm_check", SSM_ARCH, 8, 7, rng)
+    recurrent_check("hybrid_check", HYBRID_ARCH, 12, 8, rng)
+
+    # 31. hybrid_decode, 32. hybrid_prefill, 33. hybrid_long ---------------
+    hrun, hyb_decode_counts = serve_phase("hybrid_decode", HYBRID_ARCH)
+    hmodel, hcfg = hrun.model, hrun.cfg
+    del hrun
+    hyb_launches = prefill_phase(
+        "hybrid_prefill", hmodel, hcfg, rng, variant=hyb_variant,
+        labels=[(ssm_lib, "chunked_decay_attention", "ssd_scan")])
+    long_phase(hmodel, hcfg)
+    del hmodel
+    torch.cuda.empty_cache()
+
+    # 34. ssm_decode, 35. ssm_prefill --------------------------------------
+    srun, ssm_decode_counts = serve_phase("ssm_decode", SSM_ARCH)
+    smodel, scfg = srun.model, srun.cfg
+    del srun
+    ssm_launches = prefill_phase(
+        "ssm_prefill", smodel, scfg, rng, variant=None,
+        labels=[(ssm_lib, "slstm_scan", "slstm_scan"),
+                (ssm_lib, "chunked_decay_attention", "ssd_scan")])
+    del smodel
+    torch.cuda.empty_cache()
+
+    # 36. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
         t = forest_timing[binned]
@@ -2921,14 +3480,30 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:70",
         "variant": lm_variant,
+        "variants": {lm_variant: {"shape": "q (2, 32, 4096, 128), k/v "
+                                           "(2, 2, 4096, 128)",
+                                  "max_abs_err": slice_err, **attn_timing},
+                     hyb_variant: {"shape": "q, k, v (2, 32, 4096, 80)",
+                                   "max_abs_err": hyb_slice_err,
+                                   **hyb_timing,
+                                   "deterministic": repeats[
+                                       "flash_attention_cuda_core_bf16"]}},
         "sass_counts": flash_sass,
-        "launches": lm_launches + moe_launches,
+        "launches": lm_launches + moe_launches + hyb_launches
+        + ssm_launches,
         "launches_by_path": {"prefill": lm_launches,
                              "moe_prefill": moe_launches,
+                             "hybrid_prefill": hyb_launches,
+                             "ssm_prefill": ssm_launches,
                              "decode": decode_counts[-1],
-                             "moe_decode": moe_decode_counts[-1]},
+                             "moe_decode": moe_decode_counts[-1],
+                             "hybrid_decode": hyb_decode_counts[-1],
+                             "ssm_decode": ssm_decode_counts[-1]},
         "launches_per_request": {"prefill": lm_cfg.n_layers,
-                                 "moe_prefill": mcfg.n_layers},
+                                 "moe_prefill": mcfg.n_layers,
+                                 "hybrid_prefill": hcfg.n_layers
+                                 // hcfg.attn_every,
+                                 "ssm_prefill": 0},
         "max_abs_err": slice_err,
         "ms": attn_timing["ms"],
         "plain_ms": attn_timing["plain_ms"],

@@ -1,16 +1,21 @@
 """Flat-path npz checkpoints of the LM, shared with the JAX package.
 
 The JAX package's ``checkpoint/npz.py`` writes a params pytree as one
-``.npz`` per step: keys are paths such as ``layers/attn/wq/w``, the layer
-axis is stacked first, weights are (d_in, d_out).  The port's module
-names follow the same paths (``layers.3.attn.wq.w``), so a file written
-by either package loads into the other; a moe model's router and experts
-are ``layers/moe/router/w``, ``layers/moe/{wi,wg,wo}`` and
-``layers/moe/shared/...``.  bf16 arrays, which numpy stores as raw
-2-byte voids, are read back as bf16.  Writes are atomic (tmp + rename).
+``.npz`` per step: keys are paths such as ``layers/attn/wq/w``, stacked
+layer axes first, weights are (d_in, d_out).  The port's module names
+follow the same paths (``layers.3.attn.wq.w``), so a file written by
+either package loads into the other.  The stacks: ``layers`` (one axis;
+a moe model's router and experts are ``layers/moe/router/w``,
+``layers/moe/{wi,wg,wo}`` and ``layers/moe/shared/...``), ``slstm`` (one
+axis, the group), ``mlstm`` and ``mamba`` (two: the group, then the layer
+in it) and ``shared_attn`` (none: one block).  bf16 arrays, which numpy
+stores as raw 2-byte voids, are read back as bf16.  Writes are atomic
+(tmp + rename).
 
-A decode state crosses the same way (``kv/k``, ``kv/v``, layer axis
-first): :func:`decode_state_from_numpy` and :func:`decode_state_to_numpy`.
+A decode state crosses the same way (:func:`decode_state_from_numpy`,
+:func:`decode_state_to_numpy`): ``kv/k``, ``kv/v``, ``mamba``, ``mlstm``
+and the sLSTM tuple's ``slstm/#0`` ... ``slstm/#3`` (the JAX package's
+key for a tuple index), leading axes as the JAX package stacks them.
 """
 
 from __future__ import annotations
@@ -22,18 +27,30 @@ import numpy as np
 import torch
 
 from ..kernels.ops import device_of
-from ..models.model import DecoderLM, init_params
+from ..models.model import DecoderLM, init_decode_state, init_params
 
 _SEP = "/"
+# the stacked axes in front of each stack's parameters
+_STACKED = {"layers": 1, "slstm": 1, "mlstm": 2, "mamba": 2}
 
 
-def flat_key(name: str) -> tuple[str, int | None]:
-    """The JAX path and layer index of a parameter name:
-    ``layers.3.attn.wq.w`` -> (``layers/attn/wq/w``, 3)."""
+def flat_key(name: str) -> tuple[str, tuple[int, ...] | None]:
+    """The JAX path and stack index of a parameter name:
+    ``layers.3.attn.wq.w`` -> (``layers/attn/wq/w``, (3,)),
+    ``mlstm.1.2.up.w`` -> (``mlstm/up/w``, (1, 2)), ``shared_attn.ln1.scale``
+    -> (``shared_attn/ln1/scale``, None)."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return _SEP.join(["layers", *parts[2:]]), int(parts[1])
-    return _SEP.join(parts), None
+    n = _STACKED.get(parts[0], 0)
+    if not n:
+        return _SEP.join(parts), None
+    return (_SEP.join([parts[0], *parts[1 + n:]]),
+            tuple(int(i) for i in parts[1:1 + n]))
+
+
+def _stack_shape(indices) -> tuple[int, ...]:
+    """The stacked axes' sizes that ``indices`` (each a tuple) fill."""
+    return tuple(max(i[a] for i in indices) + 1
+                 for a in range(len(indices[0])))
 
 
 def _from_numpy(arr: np.ndarray) -> torch.Tensor:
@@ -66,8 +83,8 @@ def params_from_numpy(cfg, flat, *, device="cuda",
     model = init_params(cfg, device="meta", dtype=dtype)
     by_key: dict[str, list] = {}
     for name, p in model.named_parameters():
-        key, layer = flat_key(name)
-        by_key.setdefault(key, []).append((name, layer, p))
+        key, index = flat_key(name)
+        by_key.setdefault(key, []).append((name, index, p))
     missing = sorted(set(by_key) - set(flat))
     extra = sorted(set(flat) - set(by_key))
     if missing or extra:
@@ -77,12 +94,12 @@ def params_from_numpy(cfg, flat, *, device="cuda",
         arr = _from_numpy(flat[key])
         want = tuple(params[0][2].shape)
         if params[0][1] is not None:
-            want = (len(params),) + want
+            want = _stack_shape([i for _, i, _ in params]) + want
         if tuple(arr.shape) != want:
             raise ValueError(f"{key}: shape {tuple(arr.shape)}, the config "
                              f"wants {want}")
-        for name, layer, p in params:
-            t = arr if layer is None else arr[layer]
+        for name, index, p in params:
+            t = arr if index is None else arr[index]
             state[name] = t.to(device=device, dtype=p.dtype, copy=True)
         del arr
     model.load_state_dict(state, strict=True, assign=True)
@@ -97,15 +114,24 @@ def load_checkpoint(path: str, cfg, *, device="cuda",
 
 
 def to_numpy(model: DecoderLM) -> dict[str, np.ndarray]:
-    """The model's parameters as JAX flat-path float32 arrays, layer axis
+    """The model's parameters as JAX flat-path float32 arrays, stacked axes
     first (a bf16 weight widens to float32 exactly)."""
     grouped: dict[str, list] = {}
     for name, p in model.named_parameters():
-        key, _ = flat_key(name)
+        key, index = flat_key(name)
         grouped.setdefault(key, []).append(
-            p.detach().to("cpu", torch.float32).numpy())
-    return {key: (np.stack(arrs) if key.startswith("layers" + _SEP)
-                  else arrs[0]) for key, arrs in grouped.items()}
+            (index, p.detach().to("cpu", torch.float32).numpy()))
+    out = {}
+    for key, arrs in grouped.items():
+        if arrs[0][0] is None:
+            out[key] = arrs[0][1]
+            continue
+        stacked = np.empty(_stack_shape([i for i, _ in arrs])
+                           + arrs[0][1].shape, np.float32)
+        for index, arr in arrs:
+            stacked[index] = arr
+        out[key] = stacked
+    return out
 
 
 def save_checkpoint(ckpt_dir: str, step: int, model: DecoderLM) -> str:
@@ -125,36 +151,62 @@ def save_checkpoint(ckpt_dir: str, step: int, model: DecoderLM) -> str:
     return path
 
 
+def _map_state(state, fn, path: str = ""):
+    """``state`` with each tensor replaced by ``fn(its JAX flat path,
+    it)``: dict keys join with ``/``, a tuple's index is ``#i``."""
+    if isinstance(state, dict):
+        return {k: _map_state(v, fn, f"{path}{_SEP}{k}" if path else k)
+                for k, v in state.items()}
+    if isinstance(state, tuple):
+        return tuple(_map_state(t, fn, f"{path}{_SEP}#{i}")
+                     for i, t in enumerate(state))
+    return fn(path, state)
+
+
+def flat_state(state: dict) -> dict:
+    """A decode state's tensors by their JAX flat paths (``kv/k``,
+    ``mamba``, ``slstm/#3``, ...)."""
+    out = {}
+    _map_state(state, out.__setitem__)
+    return out
+
+
 def decode_state_from_numpy(cfg, flat, *, device="cuda") -> dict:
     """The port's decode state from the JAX package's flattened one.
 
-    ``flat`` maps ``kv/k`` and ``kv/v`` to (n_layers, B, L, Hkv, Dh)
-    arrays, kept in their dtype (bf16 in the JAX package).  Raises
+    ``flat`` maps the state's flat paths (``kv/k`` and ``kv/v``, with
+    ``mamba`` in the hybrid family; ``mlstm`` and ``slstm/#0`` ...
+    ``slstm/#3`` in the ssm family) to arrays shaped as
+    :func:`init_decode_state` lays them out, kept in their dtype (bf16
+    caches and float32 recurrent states in the JAX package).  Raises
     KeyError on a missing or unexpected path, ValueError on a shape that
     does not match the config.
     """
     device = device_of(device)
-    keys = {"kv/k": "k", "kv/v": "v"}
-    if set(flat) != set(keys):
+    anchor = "mlstm" if cfg.family == "ssm" else "kv/k"
+    if anchor not in flat:
+        raise KeyError(f"{cfg.name}: decode state keys {sorted(flat)}, no "
+                       f"{anchor!r}")
+    lead = 2 if cfg.family == "ssm" else 1          # the batch's axis
+    batch = flat[anchor].shape[lead]
+    length = 0 if cfg.family == "ssm" else flat[anchor].shape[2]
+    state = init_decode_state(cfg, batch, length, device="meta")
+    want = flat_state(state)
+    if set(flat) != set(want):
         raise KeyError(f"{cfg.name}: decode state keys {sorted(flat)}, "
-                       f"want {sorted(keys)}")
-    kv = {}
-    for key, name in keys.items():
+                       f"want {sorted(want)}")
+    got = {}
+    for key, t in want.items():
         arr = _from_numpy(flat[key])
-        if arr.dim() != 5 or arr.shape[0] != cfg.n_layers or \
-                tuple(arr.shape[3:]) != (cfg.n_kv_heads, cfg.head_dim):
+        if arr.shape != t.shape:
             raise ValueError(f"{key}: shape {tuple(arr.shape)}, the config "
-                             f"wants ({cfg.n_layers}, B, L, "
-                             f"{cfg.n_kv_heads}, {cfg.head_dim})")
-        kv[name] = arr.to(device=device, copy=True)
-    if kv["k"].shape != kv["v"].shape:
-        raise ValueError(f"kv/k {tuple(kv['k'].shape)} and kv/v "
-                         f"{tuple(kv['v'].shape)} differ")
-    return {"kv": kv}
+                             f"wants {tuple(t.shape)}")
+        got[key] = arr.to(device=device, copy=True)
+    return _map_state(state, lambda key, _: got[key])
 
 
 def decode_state_to_numpy(state: dict) -> dict[str, np.ndarray]:
     """A decode state as the JAX package's flat paths, float32 (a bf16
     cache widens exactly)."""
-    return {f"kv/{name}": t.detach().to("cpu", torch.float32).numpy()
-            for name, t in state["kv"].items()}
+    return {key: t.detach().to("cpu", torch.float32).numpy()
+            for key, t in flat_state(state).items()}

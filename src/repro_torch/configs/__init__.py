@@ -3,7 +3,8 @@ package.
 
 Every module exports CONFIG (exact assigned numbers, cited) and SMOKE
 (reduced same-family variant for CPU tests).  The port runs the
-``dense`` family so far (``models/model.py``).
+``dense``, ``moe``, ``ssm`` and ``hybrid`` families so far
+(``models/model.py``); ``vlm`` and ``audio`` raise.
 """
 
 from __future__ import annotations

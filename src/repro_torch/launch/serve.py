@@ -1,9 +1,11 @@
-"""Serving launcher: prefill into a KV cache, then batched greedy decode.
+"""Serving launcher: prefill into a KV cache or a recurrent state, then
+batched greedy decode.
 
 A port of the JAX package's ``launch/serve.py``.  The prompt is run
 through the decode path token by token, as there (simple and the same
-for every family; the attention-only fast path is the prefill step), so
-no flash-attention kernel runs here: decode attention is plain torch.
+for every family; the fast path is the prefill step), so no
+flash-attention kernel runs here: decode attention is plain torch, and
+so are the ssm and hybrid families' recurrent steps.
 The prompts and the random weights come from seeded ``torch.Generator``s,
 so the numbers differ from ``jax.random``'s.
 
@@ -37,7 +39,8 @@ def _sync(device: torch.device) -> None:
 def prefill_into_cache(model: DecoderLM, cfg, batch, cache_len: int, *,
                        prompt_logits: list | None = None):
     """Run the serve step over the prompt ``batch["tokens"]`` (B, S), one
-    position at a time, into a new decode state of ``cache_len`` slots.
+    position at a time, into a new decode state (KV caches of
+    ``cache_len`` slots).
 
     Returns (logits (B, 1, V) of the last position, state, S).  Where
     ``prompt_logits`` is a list, each position's logits are appended to

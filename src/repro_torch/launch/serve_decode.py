@@ -1,9 +1,7 @@
-"""Batched serving demo: prefill + greedy decode with a KV cache, across
-the attention and MoE families.
+"""Batched serving demo: prefill + greedy decode with a KV cache or a
+recurrent state, across the attention, MoE and hybrid (SSM) families.
 
-The port of the JAX package's ``examples/serve_decode.py``, which also
-serves zamba2-2.7b: the hybrid family waits for ROADMAP queue 1 item 10
-(the ssm and hybrid families), and is named here instead.
+The port of the JAX package's ``examples/serve_decode.py``.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_decode [--device cpu]
 
@@ -16,9 +14,7 @@ import argparse
 
 from .serve import generate
 
-ARCHS = ("glm4-9b", "deepseek-moe-16b")
-NOT_PORTED = {"zamba2-2.7b": "ROADMAP queue 1 item 10 (the ssm and hybrid "
-                             "families)"}
+ARCHS = ("glm4-9b", "deepseek-moe-16b", "zamba2-2.7b")
 
 
 def main(argv=None) -> dict:
@@ -32,8 +28,6 @@ def main(argv=None) -> dict:
                        device=args.device)
         out[arch] = run.tokens
         print(f"  first sequence: {run.tokens[0].tolist()}")
-    for arch, item in NOT_PORTED.items():
-        print(f"--- {arch}: not ported yet, {item} ---")
     return out
 
 

@@ -5,8 +5,8 @@ package's ``launch/steps.py``.  The prefill step, which its dry-run
 lowers for the ``prefill_32k`` shape, is one forward over the whole
 sequence, through ``ops.flash_attention`` under ``attn_impl="pallas"``
 (and under the default ``xla_chunked`` above 512 x 512 query-key pairs).
-The serve step (``decode_32k``) is one token a row against a KV cache,
-in plain torch.  The train step waits for its slice.
+The serve step (``decode_32k``) is one token a row against a KV cache
+or a recurrent state, in plain torch.  The train step waits for its slice.
 """
 
 from __future__ import annotations

@@ -22,6 +22,10 @@ its numerics:
   constants rounded to x's dtype.  One fused float32 activation would
   round once and differ from the JAX package in about 40 % of the bf16
   outputs; written out, the two agree bit for bit on the CPU.
+  ``jax.nn.softplus`` and ``log_sigmoid`` (the ssm family's gates) are
+  written out the same way, as ``jnp.logaddexp`` computes them: they
+  agree bit for bit wherever torch's ``exp`` and ``log1p`` agree with
+  XLA's on the same operands (those differ by an ulp in places).
 
 Parameters do not require gradients: the port has no backward for its
 attention kernel yet.  The losses wait for the training slice.
@@ -54,7 +58,7 @@ def dense_init(shape, *, generator, device, dtype) -> torch.Tensor:
                   device=device, dtype=dtype)
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
+def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -65,7 +69,7 @@ class RMSNorm(nn.Module):
     def __init__(self, d: int, *, device, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
-        self.scale = _frozen(torch.ones(d, dtype=torch.float32,
+        self.scale = frozen(torch.ones(d, dtype=torch.float32,
                                         device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -81,9 +85,9 @@ class Linear(nn.Module):
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  generator=None, device, dtype):
         super().__init__()
-        self.w = _frozen(dense_init((d_in, d_out), generator=generator,
+        self.w = frozen(dense_init((d_in, d_out), generator=generator,
                                     device=device, dtype=dtype))
-        self.b = (_frozen(torch.zeros(d_out, dtype=dtype, device=device))
+        self.b = (frozen(torch.zeros(d_out, dtype=dtype, device=device))
                   if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +103,7 @@ class Embedding(nn.Module):
 
     def __init__(self, vocab: int, d: int, *, generator=None, device, dtype):
         super().__init__()
-        self.table = _frozen(normal((vocab, d), 0.02, generator=generator,
+        self.table = frozen(normal((vocab, d), 0.02, generator=generator,
                                     device=device, dtype=dtype))
 
     def forward(self, tokens: torch.Tensor,
@@ -116,6 +120,20 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each
     operation rounded to x's dtype, as the JAX package computes it."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus(x)``, which is ``jnp.logaddexp(x, 0)``: ``max(x,
+    0) + log1p(exp(-|x|))`` op by op in x's dtype (NaN where x is NaN).
+    ``torch.nn.functional.softplus`` is another formula: ``log1p(exp(x))``
+    below its threshold 20, ``x`` above it."""
+    out = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid(x)``: ``-softplus(-x)``."""
+    return -softplus(-x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -138,10 +156,10 @@ class MLP(nn.Module):
             raise ValueError(mlp_type)
         self.mlp_type = mlp_type
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.wi = _frozen(dense_init((d_model, d_ff), **kw))
-        self.wg = (_frozen(dense_init((d_model, d_ff), **kw))
+        self.wi = frozen(dense_init((d_model, d_ff), **kw))
+        self.wg = (frozen(dense_init((d_model, d_ff), **kw))
                    if mlp_type == "swiglu" else None)
-        self.wo = _frozen(dense_init((d_ff, d_model), **kw))
+        self.wo = frozen(dense_init((d_ff, d_model), **kw))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x @ self.wi.to(x.dtype)

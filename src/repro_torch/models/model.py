@@ -1,25 +1,38 @@
-"""The decoder LM: init, decoder block, backbone, hidden, forward, decode.
+"""The LM: init, decoder block, backbone, hidden, forward, decode.
 
-A port of the ``dense`` and ``moe`` families of the JAX package's
-``models/model.py``: the full-sequence forward (prefill) and one decode
-step against a KV cache.  Parameters live in ``nn.Module``s whose names
-follow the JAX params pytree, so ``layers.3.attn.wq.w`` here is
-``params["layers"]["attn"]["wq"]["w"][3]`` there (the JAX package
-stacks the layer axis first for its ``lax.scan``; the port keeps one
-module per layer and runs them in a Python loop).  A ``moe`` layer has
-``moe`` (``models/moe.py``) where a dense one has ``mlp``, and the
-backbone sums the layers' router losses into ``aux``.
+A port of the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families of the
+JAX package's ``models/model.py``: the full-sequence forward (prefill)
+and one decode step against a KV cache or a recurrent state.  Parameters
+live in ``nn.Module``s whose names follow the JAX params pytree, so
+``layers.3.attn.wq.w`` here is ``params["layers"]["attn"]["wq"]["w"][3]``
+there (the JAX package stacks the layer axis first for its ``lax.scan``;
+the port keeps one module per layer and runs them in a Python loop).
+The stacks, by family:
 
-The decode state is the JAX package's pytree: ``{"kv": {"k", "v"}}``,
-each (n_layers, B, L, Hkv, Dh), the layer axis first, so a JAX state
-converts 1:1 (``checkpoint.npz.decode_state_from_numpy``).  A decode
-step updates it in place.
+  dense | moe   ``layers``: decoder blocks [attn + MLP], or [attn + MoE]
+                (``models/moe.py``), whose router losses sum into ``aux``
+  ssm (xlstm)   groups of (slstm_every - 1) mLSTM and one sLSTM:
+                ``mlstm.{g}.{i}`` and ``slstm.{g}`` (``models/ssm.py``)
+  hybrid        groups of [the shared attention block, then attn_every
+  (zamba2)      Mamba2]: ONE ``shared_attn`` decoder block (the Zamba
+                trick: the same parameters at the head of every group)
+                and ``mamba.{g}.{i}``
+
+The decode state is the JAX package's pytree, each leading axis as the
+JAX package stacks it, so a JAX state converts 1:1
+(``checkpoint.npz.decode_state_from_numpy``): ``{"kv": {"k", "v"}}``,
+each (n_layers, B, L, Hkv, Dh), in the dense and moe families;
+``{"mlstm", "slstm": (c, n, h, m)}`` in the ssm family; ``{"mamba",
+"kv"}`` in the hybrid family, with one KV cache a group for the shared
+block (n_grp, B, L, H, Dh).  Recurrent states are float32.  A decode step
+updates the state in place.
 
 The config's execution knobs are read at call time: a model built for a
 config runs under any config that differs from it only in those knobs
 (``attn_impl``, the MoE layer's ``moe_groups``, ``moe_dispatch``,
-``capacity_factor`` and ``router_aux_weight``, and the JAX compilation
-knobs, see ``configs/base.py``).  Other families raise
+``capacity_factor`` and ``router_aux_weight``, ``ssm_chunk`` and
+``ssm_compute_dtype``, and the JAX compilation knobs, see
+``configs/base.py``).  The vlm and audio families raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -30,7 +43,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from . import layers
+from . import layers, ssm
 from .attention import Attention, attention_decode, init_kv_cache
 from .moe import MoE
 from ..kernels.ops import device_of
@@ -40,18 +53,17 @@ EXECUTION_FIELDS = ("name", "attn_impl", "attn_chunk", "causal_skip",
                     "scan_layers", "scan_chunks", "remat", "seq_shard",
                     "train_microbatches", "moe_groups", "moe_dispatch",
                     "capacity_factor", "router_aux_weight",
-                    "long_context_window")
+                    "long_context_window", "ssm_chunk", "ssm_compute_dtype")
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _NOT_PORTED = {
     "vlm": "ROADMAP queue 1 item 8 (the vlm family)",
-    "ssm": "ROADMAP queue 1 item 10 (the ssm and hybrid families)",
-    "hybrid": "ROADMAP queue 1 item 10 (the ssm and hybrid families)",
     "audio": "ROADMAP queue 1 item 11 (the audio family)",
 }
 
 
 def check_family(cfg) -> None:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in FAMILIES:
         return
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
@@ -98,9 +110,18 @@ class DecoderBlock(nn.Module):
         return self._ffn(cfg, x + h)[0]
 
 
+def _groups(cfg) -> tuple[int, int]:
+    """(groups, layers of the group's own kind in a group) of the ssm and
+    hybrid stacks: (n_layers // slstm_every, slstm_every - 1) mLSTM, or
+    (n_layers // attn_every, attn_every) Mamba2."""
+    if cfg.family == "ssm":
+        return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+    return cfg.n_layers // cfg.attn_every, cfg.attn_every
+
+
 class DecoderLM(nn.Module):
-    """Embedding, ``cfg.n_layers`` decoder blocks, final RMSNorm, and tied
-    logits (or an ``unembed`` linear map when ``cfg.tie_embeddings`` is
+    """Embedding, the family's layer stack, final RMSNorm, and tied logits
+    (or an ``unembed`` linear map when ``cfg.tie_embeddings`` is
     false)."""
 
     def __init__(self, cfg, *, generator=None, device, dtype):
@@ -112,8 +133,22 @@ class DecoderLM(nn.Module):
         self.ln_f = layers.RMSNorm(cfg.d_model, device=device)
         self.unembed = (None if cfg.tie_embeddings else
                         layers.Linear(cfg.d_model, cfg.vocab_size, **kw))
-        self.layers = nn.ModuleList(DecoderBlock(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family in ("dense", "moe"):
+            self.layers = nn.ModuleList(DecoderBlock(cfg, **kw)
+                                        for _ in range(cfg.n_layers))
+            return
+        n_grp, per = _groups(cfg)
+        if cfg.family == "ssm":
+            self.mlstm = nn.ModuleList(
+                nn.ModuleList(ssm.MLSTM(cfg, **kw) for _ in range(per))
+                for _ in range(n_grp))
+            self.slstm = nn.ModuleList(ssm.SLSTM(cfg, **kw)
+                                       for _ in range(n_grp))
+        else:
+            self.mamba = nn.ModuleList(
+                nn.ModuleList(ssm.Mamba2(cfg, **kw) for _ in range(per))
+                for _ in range(n_grp))
+            self.shared_attn = DecoderBlock(cfg, **kw)
 
     def _config(self, cfg):
         """``cfg`` (default: the model's own), checked to describe the
@@ -129,12 +164,23 @@ class DecoderLM(nn.Module):
 
     def backbone(self, cfg, x, positions, *, window=0):
         """The layer stack over x (B, S, D) -> (x, aux); aux is the sum of
-        the layers' router losses (0 in the dense family)."""
+        the layers' router losses (0 outside the moe family)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for block in self.layers:
-            x, a = block(cfg, x, positions, window=window)
-            if a is not None:
-                aux = aux + a
+        if cfg.family == "ssm":
+            for group, sl in zip(self.mlstm, self.slstm):
+                for ml in group:
+                    x = x + ml(cfg, x)[0]
+                x = x + sl(cfg, x)[0]
+        elif cfg.family == "hybrid":
+            for group in self.mamba:
+                x, _ = self.shared_attn(cfg, x, positions, window=window)
+                for mb in group:
+                    x = x + mb(cfg, x)[0]
+        else:
+            for block in self.layers:
+                x, a = block(cfg, x, positions, window=window)
+                if a is not None:
+                    aux = aux + a
         return x, aux
 
     def hidden(self, batch, *, cfg=None, window=0):
@@ -159,6 +205,37 @@ class DecoderLM(nn.Module):
         return (self.embed.unembed(x) if self.unembed is None
                 else self.unembed(x))
 
+    def decode_backbone(self, cfg, x, state, pos, *, window=0):
+        """The layer stack over one token x (B, 1, D) at positions ``pos``
+        (B,), against ``state`` (updated in place) -> x."""
+        if cfg.family == "ssm":
+            sl_state = state["slstm"]
+            for g, (group, sl) in enumerate(zip(self.mlstm, self.slstm)):
+                for i, ml in enumerate(group):
+                    y, new = ssm.mlstm_step(ml, cfg, x, state["mlstm"][g, i])
+                    state["mlstm"][g, i].copy_(new)
+                    x = x + y
+                y, new = ssm.slstm_step(sl, cfg, x,
+                                        tuple(t[g] for t in sl_state))
+                for t, n in zip(sl_state, new):
+                    t[g].copy_(n)
+                x = x + y
+            return x
+        kv = state["kv"]
+        if cfg.family == "hybrid":
+            for g, group in enumerate(self.mamba):
+                x = self.shared_attn.decode(
+                    cfg, x, {"k": kv["k"][g], "v": kv["v"][g]}, pos,
+                    window=window)
+                for i, mb in enumerate(group):
+                    y, new = ssm.mamba2_step(mb, cfg, x, state["mamba"][g, i])
+                    state["mamba"][g, i].copy_(new)
+                    x = x + y
+            return x
+        for block, k, v in zip(self.layers, kv["k"], kv["v"]):
+            x = block.decode(cfg, x, {"k": k, "v": v}, pos, window=window)
+        return x
+
     def decode_step(self, state, tokens, pos, *, cfg=None, window=0):
         """One decode step: ``tokens`` (B, 1) ints at absolute positions
         ``pos`` (B,) -> (logits (B, 1, V), state).
@@ -170,10 +247,8 @@ class DecoderLM(nn.Module):
         device = self.embed.table.device
         tokens = torch.as_tensor(tokens, device=device)
         pos = torch.as_tensor(pos, device=device)
-        x = self.embed(tokens)
-        kv = state["kv"]
-        for block, k, v in zip(self.layers, kv["k"], kv["v"]):
-            x = block.decode(cfg, x, {"k": k, "v": v}, pos, window=window)
+        x = self.decode_backbone(cfg, self.embed(tokens), state, pos,
+                                 window=window)
         return self.logits(self.ln_f(x)), state
 
 
@@ -185,11 +260,13 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
     The same tensors, shapes and distributions: ``fan_in ** -0.5`` normal
     weights, a 0.02-normal embedding table, RMSNorm scales of ones and
     zero biases; in the moe family the router and experts of
-    ``models/moe.py``.  The draws come from ``generator`` (a
+    ``models/moe.py``, in the ssm and hybrid families the blocks of
+    ``models/ssm.py``.  The draws come from ``generator`` (a
     ``torch.Generator`` on ``device``), so the numbers differ from the JAX
     package's.  Matmul weights (the experts' too), biases and the table
     are stored in ``dtype`` (bf16 by default, see ``layers``); RMSNorm
-    scales and the router in float32.
+    scales, the router, Mamba2's ``A_log``, ``D`` and ``dt_bias`` and
+    sLSTM's ``r`` in float32.
     ``device="cuda"`` raises without a GPU; ``"meta"`` builds the shapes
     alone and needs no generator.
     """
@@ -203,12 +280,30 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
 
 def init_decode_state(cfg, batch: int, cache_len: int, *, device="cuda",
                       dtype: torch.dtype = layers.COMPUTE_DTYPE) -> dict:
-    """The decode state, zeros: ``{"kv": {"k", "v"}}``, each (n_layers,
-    batch, cache_len, Hkv, Dh) in ``dtype`` (bf16 as in the JAX package),
-    layer axis first as the JAX package stacks it.  ``device="cuda"``
-    raises without a GPU."""
+    """The decode state, as the JAX package's ``init_decode_state`` lays
+    it out.  KV caches (zeros in ``dtype``, bf16 as in the JAX package):
+    ``{"kv": {"k", "v"}}``, each (n_layers, batch, cache_len, Hkv, Dh), in
+    the dense and moe families; in the hybrid family one cache a group,
+    (n_grp, batch, cache_len, H, Dh), beside ``"mamba"`` (n_grp,
+    attn_every, batch, nh, N, P).  The ssm family keeps no cache:
+    ``"mlstm"`` (n_grp, slstm_every - 1, batch, H, dh, dh + 1) and
+    ``"slstm"`` (c, n, h, m), each led by n_grp, m at -1e30.  Recurrent
+    states are float32 zeros.  ``device="cuda"`` raises without a GPU."""
     check_family(cfg)
-    kv = init_kv_cache(cfg, cfg.n_layers * batch, cache_len, dtype,
-                       device=device_of(device))
-    return {"kv": {name: t.view(cfg.n_layers, batch, *t.shape[1:])
-                   for name, t in kv.items()}}
+    device = device_of(device)
+    f32 = dict(dtype=torch.float32, device=device)
+    if cfg.family == "ssm":
+        n_grp, n_ml = _groups(cfg)
+        sl = ssm.slstm_init_state(cfg, n_grp * batch, device=device)
+        return {"mlstm": torch.zeros(
+                    (n_grp, n_ml, *ssm.mlstm_state_shape(cfg, batch)), **f32),
+                "slstm": tuple(t.view(n_grp, batch, *t.shape[1:])
+                               for t in sl)}
+    n_kv = (_groups(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers)
+    kv = init_kv_cache(cfg, n_kv * batch, cache_len, dtype, device=device)
+    state = {"kv": {name: t.view(n_kv, batch, *t.shape[1:])
+                    for name, t in kv.items()}}
+    if cfg.family == "hybrid":
+        state["mamba"] = torch.zeros(
+            (*_groups(cfg), *ssm.mamba2_state_shape(cfg, batch)), **f32)
+    return state

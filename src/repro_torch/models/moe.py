@@ -50,11 +50,11 @@ class MoE(nn.Module):
         e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
         kw = dict(generator=generator, device=device)
         self.router = layers.Linear(d, e, **kw, dtype=torch.float32)
-        self.wi = layers._frozen(layers.normal((e, d, f), d ** -0.5, **kw,
+        self.wi = layers.frozen(layers.normal((e, d, f), d ** -0.5, **kw,
                                                dtype=dtype))
-        self.wg = layers._frozen(layers.normal((e, d, f), d ** -0.5, **kw,
+        self.wg = layers.frozen(layers.normal((e, d, f), d ** -0.5, **kw,
                                                dtype=dtype))
-        self.wo = layers._frozen(layers.normal((e, f, d), f ** -0.5, **kw,
+        self.wo = layers.frozen(layers.normal((e, f, d), f ** -0.5, **kw,
                                                dtype=dtype))
         self.shared = (layers.MLP(d, cfg.n_shared_experts * f, "swiglu", **kw,
                                   dtype=dtype)

@@ -37,6 +37,11 @@ Decode and the moe family: SMOKE decode (dense and moe, with and without
 a ring buffer) and the MoE layer on the card against the CPU, float32,
 within 2e-4; ``sort`` dispatch equal to ``onehot`` on the card where
 nothing is dropped.
+
+The ssm and hybrid families: the Mamba2, mLSTM and sLSTM blocks (the
+full-sequence layer and the decode step) and SMOKE xlstm-125m and
+zamba2-2.7b decode on the card against the CPU, float32, within 2e-4 in
+the outputs and the states; their bf16 prefill within 3e-2.
 """
 
 import dataclasses
@@ -48,6 +53,7 @@ import torch
 
 from repro_torch import GBDTConfig, fit, fit_reference
 from repro_torch.core.boosting import leaf_rounding
+from repro_torch.checkpoint.npz import flat_state
 from repro_torch.configs import get_config
 from repro_torch.core import proposal, sketch
 from repro_torch.core.proposal import random_candidates
@@ -56,7 +62,7 @@ from repro_torch.kernels import flash_attention as flash, hist, ops, ref, \
 from repro_torch.launch import serve
 from repro_torch.launch.serve_gbdt import synthetic_gbdt
 from repro_torch.launch.steps import make_prefill_step
-from repro_torch.models import init_decode_state, init_params, moe
+from repro_torch.models import init_decode_state, init_params, moe, ssm
 
 
 @pytest.fixture
@@ -945,10 +951,9 @@ def _float32_decode(model, cfg, state, tokens, pos, *, window=0):
         device = model.embed.table.device
         x = model.embed(torch.as_tensor(tokens, device=device),
                         dtype=torch.float32)
-        pos = torch.as_tensor(pos, device=device)
-        for block, k, v in zip(model.layers, state["kv"]["k"],
-                               state["kv"]["v"]):
-            x = block.decode(cfg, x, {"k": k, "v": v}, pos, window=window)
+        x = model.decode_backbone(cfg, x, state,
+                                  torch.as_tensor(pos, device=device),
+                                  window=window)
         return model.logits(model.ln_f(x))
 
 
@@ -1041,3 +1046,120 @@ def test_moe_sort_equals_onehot_on_card(cuda):
         model, {"tokens": tokens}) for d in ("onehot", "sort")}
     assert torch.equal(out["onehot"], out["sort"])
     assert bool(torch.isfinite(out["sort"]).all())
+
+
+# --------------------------------------------------------------------------
+# the ssm and hybrid families
+# --------------------------------------------------------------------------
+
+SSM_BLOCKS = {"mamba2": ("zamba2-2.7b", ssm.Mamba2, ssm.mamba2_step),
+              "mlstm": ("xlstm-125m", ssm.MLSTM, ssm.mlstm_step),
+              "slstm": ("xlstm-125m", ssm.SLSTM, ssm.slstm_step)}
+
+
+def _on_cpu(state):
+    if isinstance(state, tuple):
+        return tuple(t.cpu() for t in state)
+    return state.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", list(SSM_BLOCKS))
+def test_ssm_block_on_card_matches_cpu(cuda, block):
+    """A SMOKE block in float32 on the card and on the CPU, same weights:
+    the layer over 64 tokens (two chunks), then 8 decode steps from its
+    state; outputs and states within 2e-4 abs and rel."""
+    arch, cls, step = SSM_BLOCKS[block]
+    cfg = get_config(arch, smoke=True)
+    card_m = cls(cfg, generator=torch.Generator(device="cuda").manual_seed(
+        5), device="cuda", dtype=torch.float32)
+    host_m = cls(cfg, device="meta", dtype=torch.float32)
+    host_m.load_state_dict({k: v.cpu() for k, v in card_m.state_dict()
+                            .items()}, assign=True)
+    x = torch.randn((2, 72, cfg.d_model),
+                    generator=torch.Generator().manual_seed(6)) * 0.5
+    with torch.inference_mode():
+        y_card, st_card = card_m(cfg, x[:, :64].cuda())
+        y_cpu, st_cpu = host_m(cfg, x[:, :64])
+        torch.testing.assert_close(y_card.cpu(), y_cpu, rtol=2e-4, atol=2e-4)
+        for t in range(64, 72):
+            y_card, st_card = step(card_m, cfg, x[:, t:t + 1].cuda(), st_card)
+            y_cpu, st_cpu = step(host_m, cfg, x[:, t:t + 1], st_cpu)
+            torch.testing.assert_close(y_card.cpu(), y_cpu, rtol=2e-4,
+                                       atol=2e-4)
+    torch.testing.assert_close(_on_cpu(st_card), st_cpu, rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-2.7b"])
+def test_ssm_decode_on_card_matches_cpu(cuda, name):
+    """SMOKE with two groups, teacher-forced, rows at different positions,
+    float32 activations and caches: every step's logits within 2e-4 abs
+    and rel of the CPU's, and the recurrent states and zamba2's per-group
+    KV caches too, the same slots written; no kernel of the port runs."""
+    cfg = dataclasses.replace(get_config(name, smoke=True), n_layers=4)
+    card, host = _card_and_cpu(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 20)))
+    offsets = torch.tensor([0, 3])
+    states = {dev: init_decode_state(cfg, 2, 24, device=dev,
+                                     dtype=torch.float32)
+              for dev in ("cuda", "cpu")}
+    before = flash.launches
+    for t in range(20):
+        out = {dev: _float32_decode(m, cfg, states[dev], tokens[:, t:t + 1],
+                                    t + offsets)
+               for dev, m in (("cuda", card), ("cpu", host))}
+        torch.testing.assert_close(out["cuda"].cpu(), out["cpu"],
+                                   rtol=2e-4, atol=2e-4)
+    assert flash.launches == before
+    want = flat_state(states["cpu"])
+    for key, got in flat_state(states["cuda"]).items():
+        got = got.cpu()
+        assert torch.equal(got != 0, want[key] != 0), key
+        torch.testing.assert_close(got, want[key], rtol=2e-4, atol=2e-4)
+
+
+def _float32_prefill(model, cfg, tokens):
+    with torch.inference_mode():
+        t = torch.as_tensor(tokens, device=model.embed.table.device)
+        x = model.embed(t, dtype=torch.float32)
+        x, _ = model.backbone(cfg, x, torch.arange(
+            t.shape[1], device=x.device).expand(*t.shape))
+        return model.logits(model.ln_f(x)).float().cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-2.7b"])
+def test_ssm_prefill_on_card_matches_cpu(cuda, name):
+    """The SMOKE prefill (two groups, ``pallas``: zamba2's shared block
+    launches the flash kernel once a group, on the Hopper kernel at head
+    dim 32): the bf16 step finite on the card; with float32 activations
+    the card within 2e-4 abs and rel of the CPU.  (bf16 roundings an ulp
+    apart grow through zamba2's Mamba2 layers past 3e-2 in places, so the
+    bf16 logits are held at full width, in ``chip_smoke.py``, against the
+    float32 ones.)"""
+    cfg = dataclasses.replace(get_config(name, smoke=True), n_layers=4,
+                              attn_impl="pallas")
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(8), device=cuda)
+    tokens = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 128))
+    before = flash.launches_by_variant["wgmma_bf16"]
+    card = make_prefill_step(cfg)(model, {"tokens": tokens})
+    groups = 2 if cfg.family == "hybrid" else 0
+    assert flash.launches_by_variant["wgmma_bf16"] - before == groups
+    assert bool(torch.isfinite(card).all())
+    card_f32 = _float32_prefill(model, cfg, tokens)
+    f32 = _float32_prefill(model.to("cpu"), cfg, tokens)
+    torch.testing.assert_close(card_f32, f32, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_generate_zamba2_on_card(cuda):
+    before = flash.launches
+    run = serve.generate("zamba2-2.7b", smoke=True, batch=2, prompt_len=8,
+                         gen=4)
+    assert flash.launches == before
+    assert run.tokens.device.type == "cuda" and run.tokens.shape == (2, 4)
+    assert torch.equal(run.tokens[:, 0], run.last_logits[:, -1].argmax(-1))

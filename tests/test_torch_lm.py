@@ -350,8 +350,8 @@ def test_configs_are_copies(name):
 
 
 @pytest.mark.parametrize("name", [n for n in ARCH_NAMES
-                                  if jax_config(n).family not in ("dense",
-                                                                  "moe")])
+                                  if jax_config(n).family in ("vlm",
+                                                              "audio")])
 def test_other_families_raise_not_implemented(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(get_config(name, smoke=True), device="meta")
