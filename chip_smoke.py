@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
 2. build   -- every CUDA kernel built from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together),
    timed as set-up; the Hopper flash kernel's registers, spills and any
-   ptxas warning about it (``-Xptxas -v``), and the ``HGMMA`` (wgmma)
+   ptxas warning about it (``-Xptxas -v``): one instance a head dim (32,
+   64, 80, 128), none spilling; and the ``HGMMA`` (wgmma)
    and ``UTMALDG`` (TMA load) instructions in ``cuobjdump -sass`` of
    ``libflash_attention.so``; the atomic instructions in the SASS of
    ``libhist.so`` by kind (native ``ATOMS.ADD`` / ``REDG`` or a
@@ -137,9 +138,12 @@ Phases, each printing one JSON line:
 17. dist_example -- ``launch/distributed_gbdt.py`` on 8 ranks at the
    example's sizes (32 768 / 8 192 rows, 10 trees, depth 5);
 18. attn_check -- the flash-attention kernels held against their plain
-   version (``ref.attention_ref``) on the card: MHA, GQA and MQA; causal,
-   window 128, window 200 (not a tile multiple) and none; head dims 32,
-   64, 80, 128; 128 and 384 tokens, and 2048 (16 K/V tiles); ragged
+   version (``ref.attention_ref``) on the card: MHA, GQA, MQA and a
+   group of 16; causal, window 128, window 200 (not a tile multiple),
+   window 1 and none; head dims 32, 64, 80, 128; 128 and 384 tokens, 2048
+   (16 K/V tiles), and 1024 at 32:32 heads (512 work items, more than
+   the card has SMs); each case one launch of the variant the dispatch
+   names (every bf16 call on the Hopper kernel); ragged
    causal lengths through ``ops.flash_attention(..., ragged=True)`` (the
    ``xla_chunked`` path: padded to a multiple of 128, sliced back): 1000
    and 1500 tokens, GQA, float32 and bf16, and window 200 at 1000, and a
@@ -149,14 +153,18 @@ Phases, each printing one JSON line:
    ``ref.attention_rounding_bound`` (the Hopper kernel rounds P to bf16
    before its product with V); and the prefills' own shapes, causal,
    bf16: glm4-9b's, q (2, 32, 4096, 128), k/v (2, 2, 4096, 128), and
-   deepseek-moe-16b's (MHA), q, k, v (2, 16, 4096, 128), each a launch of
-   the Hopper kernel; and zamba2-2.7b's (MHA at head dim 80), q, k, v (2,
-   32, 4096, 80), a launch of the CUDA-core bf16 kernel;
-19. attn_time -- the kernel at glm4-9b's and at zamba2-2.7b's shapes
-   with CUDA events, beside the plain version,
-   ``F.scaled_dot_product_attention`` (the library yardstick, never
-   called by the port) and the bound; its TFLOP/s and its share of the
-   bound;
+   deepseek-moe-16b's (MHA), q, k, v (2, 16, 4096, 128), and zamba2-2.7b's
+   (MHA at head dim 80: three column chunks of 32, the last half zeros),
+   q, k, v (2, 32, 4096, 80), each a launch of the Hopper kernel, the
+   last two repeated bit for bit;
+19. attn_time -- the Hopper kernel at glm4-9b's and at zamba2-2.7b's
+   shapes, and the float32 kernel (on the check paths only) at q (1, 32,
+   2048, 128), k/v (1, 2, 2048, 128), causal, with CUDA events, beside
+   the plain version, ``F.scaled_dot_product_attention`` (the library
+   yardstick, never called by the port; in float32 also held to the
+   float32 contract) and the bound (bf16: the tensor cores' 989 TFLOP/s;
+   float32: the CUDA cores' 67, since TF32 breaks the contract); TFLOP/s
+   and share of the bound;
 20. prefill -- glm4-9b at full width and depth (40 layers, random bf16
    weights from a seeded generator on the card) through
    ``make_prefill_step``: one warm-up request, then 4 requests of 2 x
@@ -247,7 +255,8 @@ Phases, each printing one JSON line:
 30. hybrid_check -- the same for zamba2-2.7b with 12 layers (2 groups,
    ``attn_impl="pallas"``): the shared block launches the flash kernel
    once a group, on the CUDA-core float32 kernel in the float32 prefill
-   and on the bf16 one (head dim 80) in the bf16 step; the Mamba states
+   and on the Hopper kernel (head dim 80) in the bf16 step; the Mamba
+   states
    and the per-group KV caches within 2e-4, the same slots written;
 31. hybrid_decode -- ``serve.generate("zamba2-2.7b", smoke=False, ...)``
    with decode's arguments, at full width and depth (54 layers): as
@@ -257,7 +266,7 @@ Phases, each printing one JSON line:
 32. hybrid_prefill -- its model through ``make_prefill_step``: one
    warm-up and 4 requests of 2 x 4096 tokens (glm4-9b's cut); p50,
    tokens/s, peak, 9 flash launches a request (one a group), all on the
-   CUDA-core bf16 kernel; one request's device time by group (the chunked
+   Hopper kernel; one request's device time by group (the chunked
    SSD scan, ``ssd_scan``: ``ssm.chunked_decay_attention``; flash; GEMMs;
    the rest) and the idle share;
 33. hybrid_long -- the serve step at the dry-run's ``long_500k``: batch 1
@@ -278,9 +287,12 @@ Phases, each printing one JSON line:
 36. total -- the script's seconds; kernels -- one line listing every
    ported kernel with its launches,
    error, times, bound, launch floor and ``deterministic`` flag (and for
-   flash attention the variant, each variant's time at its prefill's
-   shape (``wgmma_bf16`` at glm4-9b's, ``cuda_core_bf16`` at zamba2's),
-   its SASS counts and its launches on every prefill and decode path;
+   flash attention the variant, and under ``variants``, keyed by variant
+   and head dim, each one's time, registers and launches by path:
+   ``wgmma_bf16_d128`` at glm4-9b's prefill shape, ``wgmma_bf16_d80`` at
+   zamba2's, ``cuda_core_f32_d128`` at attn_time's float32 shape, its
+   error measured there, with its launches on the check paths; its SASS
+   counts and its launches on every prefill and decode path;
    for the histogram and
    split gain also their launches on each path of phases 10, 11, 14
    and 15, per rank on the distributed paths).  The
@@ -515,10 +527,12 @@ def by_kernel(prof, per: int, key: str, ops: bool = False) -> list[dict]:
 
 def attn_bound_ms(b, hq, hkv, sq, sk, d, itemsize, causal) -> tuple:
     """The unmasked (query, key) pairs at 4d operations each over the
-    tensor cores' bf16 rate, against q, k, v read once and o written
-    once over the HBM rate."""
+    peak rate of the dtype (bf16: the tensor cores; float32: the CUDA
+    cores, since TF32 would break the 2e-4 contract), against q, k, v
+    read once and o written once over the HBM rate."""
     pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * sk)
-    t_ops = pairs * 4 * d / BF16_OPS_PER_S * 1e3
+    rate = BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
+    t_ops = pairs * 4 * d / rate * 1e3
     nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -540,6 +554,40 @@ def attn_within(got, q, k, v, **mask) -> tuple[bool, float, float]:
     diff = (got.float() - want).abs()
     return (bool((diff <= tol).all()), float(diff.max()),
             float((diff / tol).max()))
+
+
+def attn_time(q, k, v, *, variant: str) -> dict:
+    """The flash kernel at q, k, v (causal) with CUDA events, beside the
+    plain version, ``F.scaled_dot_product_attention`` (the library
+    yardstick, never called by the port) and the bound; emits one
+    ``attn_time`` line and returns its numbers."""
+    from repro_torch.kernels import flash_attention as flash, ref
+    t_phase = time.perf_counter()
+    b, hq, s, d = q.shape
+    ms, issue_ms = cuda_ms(lambda: flash.flash_attention_cuda(
+        q, k, v, causal=True), iters=10, warmup=2)
+    plain_ms, _ = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True),
+                          iters=3, warmup=1)
+    gqa = hq != k.shape[1]
+    library_ms, _ = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=gqa), iters=10, warmup=2)
+    bound_ms, bound_by = attn_bound_ms(b, hq, k.shape[1], s, s, d,
+                                       q.element_size(), True)
+    flops = b * hq * s * (s + 1) // 2 * 4 * d
+    out = dict(ms=ms, issue_ms=issue_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               tflops=flops / (ms * 1e-3) / 1e12,
+               library_tflops=flops / (library_ms * 1e-3) / 1e12,
+               share_of_bound=bound_ms / ms)
+    emit("attn_time", kernel="flash_attention", variant=variant,
+         shape=dict(q=list(q.shape), kv=list(k.shape), causal=True,
+                    dtype=str(q.dtype)[6:]),
+         kernel_us=ms * 1e3, **out,
+         bound_peak_tflops=(BF16_OPS_PER_S if q.element_size() == 2
+                            else FP32_OPS_PER_S) / 1e12,
+         seconds=time.perf_counter() - t_phase)
+    return out
 
 
 def ptxas_report(log: str) -> dict:
@@ -1248,7 +1296,7 @@ def recurrent_check(phase: str, arch: str, n_layers: int, seed: int,
     input to it within 2e-4 abs and rel, the logits within 2e-4 or, where
     the model itself carries the roundings of its blocks further
     (``rounded_blocks``), within ``NOISE_FACTOR`` times that; the bf16 prefill step finite
-    (once a group on the bf16 kernel);
+    (once a group on the Hopper kernel);
     on the card the decode path over the same 512 tokens (the serving
     prefill, token by token) against the chunked prefill's logits within
     the JAX package's chunked-vs-sequential tolerance, every logit
@@ -1639,6 +1687,15 @@ def main() -> int:
     check(len(wgmma_ptxas) == len(flash.WGMMA_HEAD_DIMS),
           f"ptxas reported {sorted(wgmma_ptxas)}, want one Hopper flash "
           f"kernel a head dim of {flash.WGMMA_HEAD_DIMS}")
+    wgmma_regs = {f"d{d}": next(
+        ({"registers": v.get("registers"),
+          "spill_bytes": v.get("spill_stores", 0) + v.get("spill_loads", 0)}
+         for k, v in wgmma_ptxas.items()
+         if f"flash_kernel_wgmmaILi{d}E" in k), None)
+        for d in flash.WGMMA_HEAD_DIMS}
+    check(all(r is not None and r["spill_bytes"] == 0
+              for r in wgmma_regs.values()),
+          f"a Hopper flash kernel spills or was not reported: {wgmma_regs}")
     check(flash_sass is None or all(flash_sass[op] > 0 for op in SASS_OPS),
           f"libflash_attention.so lacks wgmma or TMA instructions: "
           f"{flash_sass}")
@@ -1648,7 +1705,8 @@ def main() -> int:
     check(not cas_loops, f"libhist.so adds with compare-and-swap loops: "
           f"{hist_atomics}")
     emit("build", seconds=build_seconds, libraries=sorted(libs),
-         ptxas=ptxas, flash_sass_counts=flash_sass,
+         ptxas=ptxas, flash_wgmma_registers=wgmma_regs,
+         flash_sass_counts=flash_sass,
          hist_sass_atomics=hist_atomics, hist_cas_loops=cas_loops,
          sass_note=None if flash_sass is not None else
          "cuobjdump not found: SASS not counted")
@@ -2747,12 +2805,21 @@ def main() -> int:
 
     attn_err = dict.fromkeys(flash.VARIANTS, 0.0)
     attn_share = dict.fromkeys(flash.VARIANTS, 0.0)   # of the tolerance
+    attn_err_d80 = dict.fromkeys(flash.VARIANTS, 0.0)
+    attn_share_d80 = dict.fromkeys(flash.VARIANTS, 0.0)
     cases = [(2, hq, hkv, sq, causal, window)
-             for hq, hkv in ((4, 4), (8, 2), (8, 1))   # MHA, GQA, MQA
+             # MHA, GQA, MQA, a group of 16
+             for hq, hkv in ((4, 4), (8, 2), (8, 1), (16, 1))
              for causal, window in ((True, 0), (True, 128), (True, 200),
-                                    (False, 0))
+                                    (True, 1), (False, 0))
              for sq in (128, 384)]
     cases += [(1, 4, 2, 2048, True, 0), (1, 4, 2, 2048, True, 200)]
+    # 512 (head, query tile) items, more than the card has SMs: each block
+    # of the persistent Hopper kernel walks several, reloading Q
+    cases += [(2, 32, 32, 1024, True, 0)]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(2 * 32 * 1024 // 128 > n_sms, f"attn_check: 512 work items do "
+          f"not outnumber the card's {n_sms} SMs")
     n_attn = 0
     for b, hq, hkv, sq, causal, window in cases:
         for d in flash.HEAD_DIMS:
@@ -2773,6 +2840,9 @@ def main() -> int:
                       f"share of tolerance {share})")
                 attn_err[name] = max(attn_err[name], err)
                 attn_share[name] = max(attn_share[name], share)
+                if d == 80:
+                    attn_err_d80[name] = max(attn_err_d80[name], err)
+                    attn_share_d80[name] = max(attn_share_d80[name], share)
                 n_attn += 1
     # ragged causal lengths, as xla_chunked's blockwise path gives them:
     # padded to a multiple of 128 around one launch, sliced back
@@ -2832,25 +2902,26 @@ def main() -> int:
         got, flash.flash_attention_cuda(q, k, v, causal=True))
     del got
     # the hybrid prefill's shape: zamba2-2.7b's MHA 32:32 at head dim 80
-    # (2560 / 32), 2 x 4096, bf16: not a wgmma head dim, so the CUDA-core
-    # kernel
+    # (2560 / 32), 2 x 4096, bf16: the Hopper kernel in column chunks of 32
     hyb_cfg = get_config(HYBRID_ARCH)
     hq_, hk_, hv_ = attn_case(LM_BATCH, hyb_cfg.n_heads, hyb_cfg.n_kv_heads,
                               LM_SEQ, hyb_cfg.head_dim, torch.bfloat16)
     hyb_variant = flash.variant(hq_.dtype, hyb_cfg.head_dim)
-    before = flash.launches_by_variant["cuda_core_bf16"]
+    before = flash.launches_by_variant["wgmma_bf16"]
     got = flash.flash_attention_cuda(hq_, hk_, hv_, causal=True)
     torch.cuda.synchronize()
     ok, hyb_slice_err, hyb_slice_share = attn_within(got, hq_, hk_, hv_,
                                                      causal=True)
-    check(ok and hyb_variant == "cuda_core_bf16" and got.shape == hq_.shape
-          and flash.launches_by_variant["cuda_core_bf16"] == before + 1,
+    check(ok and hyb_variant == "wgmma_bf16" and got.shape == hq_.shape
+          and flash.launches_by_variant["wgmma_bf16"] == before + 1,
           f"flash kernel ({hyb_variant}) != plain version at the hybrid "
           f"prefill shape {tuple(hq_.shape)} (max_abs_err={hyb_slice_err}, "
-          f"share of tolerance {hyb_slice_share}), or not one cuda_core_bf16 "
+          f"share of tolerance {hyb_slice_share}), or not one wgmma_bf16 "
           "launch")
-    repeats["flash_attention_cuda_core_bf16"] = torch.equal(
+    repeats["flash_attention_d80"] = torch.equal(
         got, flash.flash_attention_cuda(hq_, hk_, hv_, causal=True))
+    check(repeats["flash_attention_d80"], "flash kernel at the hybrid "
+          "prefill shape: a second launch on the same inputs differs")
     del got
     emit("attn_check", cases=n_attn + 3, within_tolerance=True,
          tolerance={"f32": {"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
@@ -2859,64 +2930,46 @@ def main() -> int:
                              "plus": "ref.attention_rounding_bound"}},
          max_abs_err={**attn_err, "prefill_shape_wgmma_bf16": slice_err,
                       "moe_prefill_shape_wgmma_bf16": moe_slice_err,
-                      "hybrid_prefill_shape_cuda_core_bf16": hyb_slice_err},
+                      "hybrid_prefill_shape_wgmma_bf16_d80": hyb_slice_err},
          max_share_of_tolerance={
              **attn_share, "prefill_shape_wgmma_bf16": slice_share,
              "moe_prefill_shape_wgmma_bf16": moe_slice_share,
-             "hybrid_prefill_shape_cuda_core_bf16": hyb_slice_share},
+             "hybrid_prefill_shape_wgmma_bf16_d80": hyb_slice_share},
+         d80_by_variant={"max_abs_err": attn_err_d80,
+                         "share_of_tolerance": attn_share_d80},
+         repeat_equal={"d128": repeats["flash_attention"],
+                       "d80": repeats["flash_attention_d80"]},
          ragged={"max_abs_err": ragged_err,
                  "share_of_tolerance": ragged_share,
                  "no_mask_raises": ragged_refusal},
          seconds=time.perf_counter() - t_phase)
 
     # 19. attn_time --------------------------------------------------------
-    t_phase = time.perf_counter()
-    ms, issue_ms = cuda_ms(lambda: flash.flash_attention_cuda(
-        q, k, v, causal=True), iters=10, warmup=2)
-    plain_ms, _ = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True),
-                          iters=3, warmup=1)
-    library_ms, _ = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters=10, warmup=2)
-    b_ms, b_by = attn_bound_ms(LM_BATCH, hq, hkv, LM_SEQ, LM_SEQ, d, 2, True)
-    attn_flops = LM_BATCH * hq * LM_SEQ * (LM_SEQ + 1) // 2 * 4 * d
-    attn_timing = dict(ms=ms, issue_ms=issue_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-    emit("attn_time", kernel="flash_attention", variant=lm_variant,
-         shape=dict(q=list(q.shape), kv=list(k.shape), causal=True,
-                    dtype="bf16"),
-         kernel_us=ms * 1e3, **attn_timing,
-         tflops=attn_flops / (ms * 1e-3) / 1e12,
-         library_tflops=attn_flops / (library_ms * 1e-3) / 1e12,
-         share_of_bound=b_ms / ms, seconds=time.perf_counter() - t_phase)
+    attn_timing = attn_time(q, k, v, variant=lm_variant)
     del q, k, v
-    # the same at the hybrid prefill's shape, on the CUDA-core kernel
-    t_phase = time.perf_counter()
-    hyb_ms, hyb_issue_ms = cuda_ms(lambda: flash.flash_attention_cuda(
-        hq_, hk_, hv_, causal=True), iters=10, warmup=2)
-    hyb_plain_ms, _ = cuda_ms(lambda: ref.attention_ref(
-        hq_, hk_, hv_, causal=True), iters=3, warmup=1)
-    hyb_library_ms, _ = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            hq_, hk_, hv_, is_causal=True), iters=10, warmup=2)
-    hd = hyb_cfg.head_dim
-    hb_ms, hb_by = attn_bound_ms(LM_BATCH, hyb_cfg.n_heads,
-                                 hyb_cfg.n_kv_heads, LM_SEQ, LM_SEQ, hd, 2,
-                                 True)
-    hyb_flops = LM_BATCH * hyb_cfg.n_heads * LM_SEQ * (LM_SEQ + 1) // 2 \
-        * 4 * hd
-    hyb_timing = dict(ms=hyb_ms, issue_ms=hyb_issue_ms, plain_ms=hyb_plain_ms,
-                      library_ms=hyb_library_ms, bound_ms=hb_ms,
-                      bound_by=hb_by)
-    emit("attn_time", kernel="flash_attention", variant=hyb_variant,
-         shape=dict(q=list(hq_.shape), kv=list(hk_.shape), causal=True,
-                    dtype="bf16"),
-         kernel_us=hyb_ms * 1e3, **hyb_timing,
-         tflops=hyb_flops / (hyb_ms * 1e-3) / 1e12,
-         library_tflops=hyb_flops / (hyb_library_ms * 1e-3) / 1e12,
-         bound_peak_tflops=BF16_OPS_PER_S / 1e12,
-         share_of_bound=hb_ms / hyb_ms, seconds=time.perf_counter() - t_phase)
+    # the same at the hybrid prefill's shape (d = 80)
+    hyb_timing = attn_time(hq_, hk_, hv_, variant=hyb_variant)
     del hq_, hk_, hv_
+    # the float32 kernel, which only the check paths launch, at glm4-9b's
+    # heads and 2048 tokens: its output there is held to the plain
+    # version, and SDPA's float32 result to the same contract
+    fq, fk, fv = attn_case(1, hq, hkv, 2048, d, torch.float32)
+    f32_variant = flash.variant(fq.dtype, d)
+    f32_ok, f32_err, f32_share = attn_within(
+        flash.flash_attention_cuda(fq, fk, fv, causal=True), fq, fk, fv,
+        causal=True)
+    check(f32_ok, f"attn_time: {f32_variant} at q {tuple(fq.shape)} lies "
+          f"{f32_share:.3g} x its tolerance from the plain version")
+    f32_timing = attn_time(fq, fk, fv, variant=f32_variant)
+    f32_timing.update(max_abs_err=f32_err, share_of_tolerance=f32_share)
+    sdpa_ok, sdpa_err, sdpa_share = attn_within(
+        torch.nn.functional.scaled_dot_product_attention(
+            fq, fk, fv, is_causal=True, enable_gqa=True), fq, fk, fv,
+        causal=True)
+    f32_timing.update(library_within_contract=sdpa_ok,
+                      library_max_abs_err=sdpa_err,
+                      library_share_of_tolerance=sdpa_share)
+    del fq, fk, fv
     torch.cuda.empty_cache()
 
     # 20. prefill ---------------------------------------------------------
@@ -3374,7 +3427,7 @@ def main() -> int:
 
     # 29. ssm_check, 30. hybrid_check -------------------------------------
     recurrent_check("ssm_check", SSM_ARCH, 8, 7, rng)
-    recurrent_check("hybrid_check", HYBRID_ARCH, 12, 8, rng)
+    hyb_check = recurrent_check("hybrid_check", HYBRID_ARCH, 12, 8, rng)
 
     # 31. hybrid_decode, 32. hybrid_prefill, 33. hybrid_long ---------------
     hrun, hyb_decode_counts = serve_phase("hybrid_decode", HYBRID_ARCH)
@@ -3480,14 +3533,30 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:70",
         "variant": lm_variant,
-        "variants": {lm_variant: {"shape": "q (2, 32, 4096, 128), k/v "
-                                           "(2, 2, 4096, 128)",
-                                  "max_abs_err": slice_err, **attn_timing},
-                     hyb_variant: {"shape": "q, k, v (2, 32, 4096, 80)",
-                                   "max_abs_err": hyb_slice_err,
-                                   **hyb_timing,
-                                   "deterministic": repeats[
-                                       "flash_attention_cuda_core_bf16"]}},
+        # one entry a (variant, head dim): bf16 at d = 128 and 80 share
+        # the Hopper kernel's variant
+        "variants": {
+            f"{lm_variant}_d{lm_cfg.head_dim}": {
+                "shape": "q (2, 32, 4096, 128), k/v (2, 2, 4096, 128)",
+                "max_abs_err": slice_err, **attn_timing,
+                "registers": wgmma_regs[f"d{lm_cfg.head_dim}"],
+                "launches_by_path": {"prefill": lm_launches,
+                                     "moe_prefill": moe_launches}},
+            f"{hyb_variant}_d{hyb_cfg.head_dim}": {
+                "shape": "q, k, v (2, 32, 4096, 80)",
+                "max_abs_err": hyb_slice_err, **hyb_timing,
+                "registers": wgmma_regs[f"d{hyb_cfg.head_dim}"],
+                "deterministic": repeats["flash_attention_d80"],
+                "launches_by_path": {"hybrid_prefill": hyb_launches}},
+            f"{f32_variant}_d{lm_cfg.head_dim}": {
+                "shape": "q (1, 32, 2048, 128), k/v (1, 2, 2048, 128)",
+                **f32_timing,
+                "on_main_path": False,
+                "launches_by_path": {
+                    "prefill_check": check_by_variant[f32_variant],
+                    "prefill_check/ragged": ragged_launches,
+                    "hybrid_check": hyb_check["flash_launches_f32"][
+                        f32_variant]}}},
         "sass_counts": flash_sass,
         "launches": lm_launches + moe_launches + hyb_launches
         + ssm_launches,

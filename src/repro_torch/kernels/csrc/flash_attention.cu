@@ -15,8 +15,9 @@
 // the causal / window band.  That is exact: such a tile has s = NEG_INF
 // everywhere, so m_new = m_prev, alpha = exp(0) = 1 and p = 0, and m, l
 // and acc are unchanged in the JAX kernel too.  Both take query tiles
-// heaviest first (the longest causal bands), so the long tiles start
-// early and the short ones fill the end.
+// heaviest first (the longest causal bands; the Hopper kernel within a
+// group of heads), so the long tiles start early and the short ones fill
+// the end.
 //
 // What bounds it on the H100: operations.  At the prefill shape of
 // glm4-9b (q 2 x 32 x 4096 x 128, k/v 2 x 2 x 4096 x 128, causal) the
@@ -24,43 +25,56 @@
 // against 0.14 GB of q, k, v and o: 0.28 ms at the tensor cores' 989
 // TFLOP/s in bf16, 4.1 ms at the 67 TFLOP/s of float32 on the CUDA cores.
 //
-// flash_attention_wgmma -- bf16 at head dims 32, 64 and 128 (the prefill
-// path).  Design, for the tensor cores:
-// - Persistent: one block of 384 threads an SM walks its share of the
-//   work items, each a (batch * q-head, 128-row query tile), heaviest
-//   first.  Two consumer warpgroups take 64 query rows each; one thread
-//   of a producer warpgroup issues every copy.  setmaxnreg moves
-//   registers from the producer (24 a thread) to the consumers (240).
+// flash_attention_wgmma -- every bf16 call, at head dims 32, 64, 80 and
+// 128 (the prefill path).  Design, for the tensor cores:
+// - Persistent: one block of 384 threads an SM takes work items, each a
+//   (batch * q-head, 128-row query tile), one at a time from a global
+//   count (atomicAdd), until none is left.  Items run a group of heads
+//   at a time, heaviest first within a group, a group about as many
+//   items as there are blocks: the blocks in flight read the K/V of a
+//   group or two of heads, which stay in L2 (zamba2's 84 MB of K/V do
+//   not fit its 50 MB), and every group ends with its lightest items, so
+//   the blocks finish together.  Two consumer warpgroups take 64 query
+//   rows each; one thread of a producer warpgroup takes the items and
+//   issues every copy.  setmaxnreg moves registers from the producer (24
+//   a thread) to the consumers (240).
 //   The K/V ring runs on from one item to the next, and the next item's
 //   Q loads (once an mbarrier says every S of this item has landed) while
 //   this item's last P V and its output are under way.
 // - Q, and K and V in tiles of 128 keys, reach shared memory by TMA
 //   (cp.async.bulk.tensor, tensor maps built on the host) in the swizzled
-//   layout that wgmma's descriptors read: rows of 128 bytes (64 bytes at
-//   d = 32), a head dim wider than that in column chunks of 64.
+//   layout that wgmma's descriptors read, in column chunks of one swizzle
+//   span each, one TMA box a chunk: 64 columns (128-byte swizzle) where d
+//   is a multiple of 64, else 32 (64-byte swizzle).  d = 80 takes three
+//   chunks of 32, the last box half past the row's end: TMA fills its
+//   columns 80 .. 95 with zeros (and counts them in the transaction
+//   bytes), so a tile is kDPad = 96 columns wide in shared memory.
 // - K/V go through a ring of three stages (225 KB of shared memory at
-//   d = 128 with Q), each with a full mbarrier (the copy's bytes arrived)
-//   and an empty one (all 256 consumer threads are done with it), so the
-//   next tiles load while this one is computed.
+//   d = 128 with Q, 169 KB at d = 80; a fourth at d = 80 timed no
+//   faster), each with a full mbarrier (the copy's bytes arrived) and an
+//   empty one (all 256 consumer threads are done with it), so the next
+//   tiles load while this one is computed.
 // - S = Q K^T by wgmma m64n128k16, bf16 x bf16 -> f32, Q and K from
-//   shared memory (both K-major).  O += P V by wgmma m64nDk16 with P as
-//   the A operand from registers: the f32 accumulator of S holds, per
-//   thread, exactly the elements of the A fragment of the next product,
-//   so P is packed to bf16 in place and never goes through shared
-//   memory.  V is the B operand as stored, [keys][d], read MN-major (the
-//   transpose bit).
+//   shared memory (both K-major), in d / 16 steps: at d = 80 five, which
+//   never read the zero columns.  O += P V by wgmma m64nNk16, N = kDPad
+//   (96 at d = 80: its last 16 accumulator columns are 0 and never
+//   written out), with P as the A operand from registers: the f32
+//   accumulator of S holds, per thread, exactly the elements of the A
+//   fragment of the next product, so P is packed to bf16 in place and
+//   never goes through shared memory.  V is the B operand as stored,
+//   [keys][d], read MN-major (the transpose bit).
 // - Overlap, two ways.  Within a warpgroup: S_t = Q K_t^T and
 //   P_{t-1} V_{t-1} are issued together, the softmax of S_t runs while
 //   P V is in flight, and O is rescaled once P V has landed (S, P and O
-//   in flight at once: 160 of the 240 registers).  Between the two
-//   warpgroups: they take turns to issue (named barriers), so that one's
-//   softmax runs while the other's products hold the tensor cores; left
-//   alone, the two wait on the same tile and reach their softmax
-//   together, leaving the tensor cores idle.  The wgmma descriptors are
-//   built inside each wgmma's asm from a tile's descriptor and an
-//   immediate offset, so the compiler keeps no descriptor a k16 step
-//   live: with them hoisted, ptxas ran out of registers and serialised
-//   the wgmmas.
+//   in flight at once: 160 of the 240 registers at d = 128, 144 at
+//   d = 80).  Between the two warpgroups: they take turns to issue
+//   (named barriers), so that one's softmax runs while the other's
+//   products hold the tensor cores; left alone, the two wait on the same
+//   tile and reach their softmax together, leaving the tensor cores
+//   idle.  The wgmma descriptors are built inside each wgmma's asm from
+//   a tile's descriptor and an immediate offset, so the compiler keeps no
+//   descriptor a k16 step live: with them hoisted, ptxas ran out of
+//   registers and serialised the wgmmas.
 // - Only tiles that straddle the diagonal or the window's lower edge for
 //   a warpgroup's 64 rows compute the mask; interior tiles run unmasked.
 // - GQA reads KV head h / g through its row coordinate in the K/V tensor
@@ -78,22 +92,22 @@
 //   ulp of acc / l, is rounded to bf16 at the end.  A row with one kept
 //   key gets p = 1 and o = v exactly.
 // - A wait on an mbarrier that lasts 4 s traps, so a broken pipeline
-//   fails the launch instead of holding the card.
+//   fails the launch instead of holding the card (the consumers' wait for
+//   Q has no timeout; the producer's next wait then traps).
 //
-// flash_attention -- the CUDA-core kernel: every float32 call, and bf16 at
-// head dim 80 (160-byte rows take no TMA swizzle).  It keeps the JAX
-// kernel's float32 arithmetic, p included, so float32 meets the 2e-4
+// flash_attention -- the CUDA-core kernel: every float32 call.  It keeps
+// the JAX kernel's float32 arithmetic, p included, so it meets the 2e-4
 // contract with the JAX package; a TF32 wgmma keeps 10 bits of mantissa
 // and would not.  One block of 256 threads owns one (batch * q-head,
 // 64-row query tile); the TPU grid's sequential KV axis becomes a loop
-// inside the block over 64-key tiles, staged through shared memory and
-// widened to float32.  Per KV tile: S = Q K^T as a 4 x 4 register tile per
-// thread (float4 reads along d, rows padded by 4 floats so a quarter-
-// warp's reads hit distinct banks), the online-softmax update with the
-// row max and row sum reduced across the 16 threads that share a row by
-// warp shuffles (a butterfly, so every thread holds the same value), P
-// written to shared memory, then acc += P V into a 4 x (4 * NC) register
-// tile.  K and then V reuse one shared buffer, so two blocks fit on an SM.
+// inside the block over 64-key tiles, staged through shared memory.  Per
+// KV tile: S = Q K^T as a 4 x 4 register tile per thread (float4 reads
+// along d, rows padded by 4 floats so a quarter-warp's reads hit distinct
+// banks), the online-softmax update with the row max and row sum reduced
+// across the 16 threads that share a row by warp shuffles (a butterfly,
+// so every thread holds the same value), P written to shared memory, then
+// acc += P V into a 4 x (4 * NC) register tile.  K and then V reuse one
+// shared buffer, so two blocks fit on an SM.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -123,33 +137,15 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// rows x D contiguous elements of global memory -> float32 rows of
-// shared memory with stride Tile<D>::kLd.
-template <int D, typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, float* dst,
-                                      int rows) {
+// rows x D contiguous floats of global memory -> rows of shared memory
+// with stride Tile<D>::kLd.
+template <int D>
+__device__ __forceinline__ void stage(const float* __restrict__ src,
+                                      float* dst, int rows) {
   constexpr int kGroups = D / 4;
   for (int idx = threadIdx.x; idx < rows * kGroups; idx += kThreads) {
     const int r = idx / kGroups;
@@ -173,10 +169,10 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int q_heads,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int q_heads,
              int kv_heads, int sq, int sk, float scale, int causal,
              int window) {
   using Tl = Tile<D>;
@@ -193,9 +189,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / q_heads;
   const int kvh = b * kv_heads + (bh - b * q_heads) / (q_heads / kv_heads);
   const int q0 = qt * kBlockQ;
-  const T* qb = q + (static_cast<size_t>(bh) * sq + q0) * D;
-  const T* kb = k + static_cast<size_t>(kvh) * sk * D;
-  const T* vb = v + static_cast<size_t>(kvh) * sk * D;
+  const float* qb = q + (static_cast<size_t>(bh) * sq + q0) * D;
+  const float* kb = k + static_cast<size_t>(kvh) * sk * D;
+  const float* vb = v + static_cast<size_t>(kvh) * sk * D;
 
   const int tx = threadIdx.x & 15;   // key column / output column group
   const int ty = threadIdx.x >> 4;   // query rows ty + 16 i
@@ -315,7 +311,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + (static_cast<size_t>(bh) * sq + q0 + ty + 16 * i) * D;
+    float* orow = o + (static_cast<size_t>(bh) * sq + q0 + ty + 16 * i) * D;
 #pragma unroll
     for (int c = 0; c < kNC; ++c) {
       const int col = 4 * (tx + 16 * c);
@@ -326,44 +322,21 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, typename T>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int batch, int q_heads, int kv_heads, int sq, int sk,
                    float scale, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = Tile<D>::kSmemBytes;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(batch * q_heads, sq / kBlockQ);
-  flash_kernel<D, T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), q_heads, kv_heads, sq, sk,
-      scale, causal, window);
+  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), q_heads, kv_heads,
+      sq, sk, scale, causal, window);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* o, int batch, int q_heads, int kv_heads, int sq,
-                     int sk, float scale, int causal, int window,
-                     cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<32, T>(q, k, v, o, batch, q_heads, kv_heads, sq, sk,
-                           scale, causal, window, stream);
-    case 64:
-      return launch<64, T>(q, k, v, o, batch, q_heads, kv_heads, sq, sk,
-                           scale, causal, window, stream);
-    case 80:
-      return launch<80, T>(q, k, v, o, batch, q_heads, kv_heads, sq, sk,
-                           scale, causal, window, stream);
-    case 128:
-      return launch<128, T>(q, k, v, o, batch, q_heads, kv_heads, sq, sk,
-                            scale, causal, window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -381,14 +354,18 @@ template <int D>
 struct Layout {
   // Bytes of a swizzled shared-memory row; a TMA box is one column chunk
   // of that many bytes across all rows of the tile, chunks one after the
-  // other.  The swizzle repeats every 8 rows (8 * kSwizzle bytes).
-  static constexpr int kSwizzle = D >= 64 ? 128 : 64;
+  // other.  The swizzle repeats every 8 rows (8 * kSwizzle bytes).  A
+  // head dim that is no multiple of the chunk ends in a part chunk, whose
+  // columns past d TMA fills with zeros: kDPad columns in shared memory.
+  static constexpr int kSwizzle = D % 64 == 0 ? 128 : 64;
   static constexpr int kChunkCols = kSwizzle / 2;
-  static constexpr int kChunks = D / kChunkCols;
+  static constexpr int kChunks = (D + kChunkCols - 1) / kChunkCols;
+  static constexpr int kDPad = kChunks * kChunkCols;
   static constexpr int kStepsPerChunk = kSwizzle / 32;  // k16 steps a chunk
-  static constexpr int kQBytes = kBlockM * D * 2;
-  static constexpr int kTileBytes = kBlockN * D * 2;    // K or V of a stage
-  static constexpr int kBarrierBytes = 8 * (2 * kStages + 2);
+  static constexpr int kQBytes = kBlockM * kDPad * 2;
+  static constexpr int kTileBytes = kBlockN * kDPad * 2;  // K or V a stage
+  // full and empty a stage, Q's full and empty, the current work item
+  static constexpr int kBarrierBytes = 8 * (2 * kStages + 3);
   // 1024 bytes of slack to align the tiles to the swizzle's period.
   static constexpr int kSmemBytes =
       1024 + kQBytes + 2 * kStages * kTileBytes + kBarrierBytes;
@@ -421,16 +398,31 @@ __device__ __forceinline__ bool bar_try_wait(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
+__device__ __forceinline__ void st_shared(uint32_t addr, int v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int ld_shared(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 __device__ __forceinline__ uint64_t global_ns() {
   uint64_t t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
 
-// Returns once the phase of ``bar`` with this parity has completed.  A
-// wait of more than 4 s can only be a broken pipeline: it traps, so the
-// launch fails (the wrapper's next synchronise reports it) instead of
-// holding the card.
+// Returns once the phase of ``bar`` with this parity has completed.
+__device__ __forceinline__ void bar_spin(uint32_t bar, uint32_t parity) {
+  while (!bar_try_wait(bar, parity)) {
+  }
+}
+
+// The same, but a wait of more than 4 s can only be a broken pipeline:
+// it traps, so the launch fails (the wrapper's next synchronise reports
+// it) instead of holding the card.
 __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
   if (bar_try_wait(bar, parity)) return;
   const uint64_t t0 = global_ns();
@@ -487,6 +479,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+#define REGS48                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47}"
 #define REGS64                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -561,6 +558,25 @@ struct MmaRs<64, kOffB> {
 };
 
 template <int kOffB>
+struct MmaRs<96, kOffB> {
+  __device__ __forceinline__ static void run(float (&d)[48], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        ".reg .b64 db;\n"
+        "setp.ne.b32 p, %53, 0;\n"
+        "add.s64 db, %52, %54;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " REGS48
+        ", {%48, %49, %50, %51}, db, p, 1, 1, 1;\n"
+        "}\n"
+        : ACC32(0), ACC16(32)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1), "n"(kOffB));
+  }
+};
+
+template <int kOffB>
 struct MmaRs<128, kOffB> {
   __device__ __forceinline__ static void run(float (&d)[64], uint32_t a0,
                                              uint32_t a1, uint32_t a2,
@@ -584,6 +600,7 @@ struct MmaRs<128, kOffB> {
 #undef ACC32
 #undef REGS16
 #undef REGS32
+#undef REGS48
 #undef REGS64
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -639,21 +656,22 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t q,
   issue_qk<D>(s, q, k, std::make_integer_sequence<int, D / 16>{});
 }
 
-// acc (64 x D, f32) += P V over the tile's keys in k16 steps, from the
-// descriptor of a V tile: step kk reads keys 16kk .. 16kk + 15, V rows
+// acc (64 x kDPad, f32) += P V over the tile's keys in k16 steps, from
+// the descriptor of a V tile: step kk reads keys 16kk .. 16kk + 15, V rows
 // 16kk on; column chunks of V lie kBlockN rows apart (the descriptor's
 // leading byte offset).
 template <int D, int... kK>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&p)[32], uint64_t v,
-                                         std::integer_sequence<int, kK...>) {
-  (MmaRs<D, (kK * Layout<D>::kSwizzle)>::run(   // 16 rows, 16-byte units
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[Layout<D>::kDPad / 2], const uint32_t (&p)[32], uint64_t v,
+    std::integer_sequence<int, kK...>) {
+  // 16 rows a step, in the descriptor's 16-byte units
+  (MmaRs<Layout<D>::kDPad, (kK * Layout<D>::kSwizzle)>::run(
        acc, p[4 * kK], p[4 * kK + 1], p[4 * kK + 2], p[4 * kK + 3], v),
    ...);
 }
 
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+__device__ __forceinline__ void issue_pv(float (&acc)[Layout<D>::kDPad / 2],
                                          const uint32_t (&p)[32],
                                          uint64_t v) {
   issue_pv<D>(acc, p, v, std::make_integer_sequence<int, kBlockN / 16>{});
@@ -757,8 +775,10 @@ struct Softmax {
 };
 
 // One work item: a (batch * q-head, 128-row query tile) and its band of
-// K/V tiles.  Items are numbered heaviest first: every head's last query
-// tile (the longest causal band), then every head's tile before it, ...
+// K/V tiles.  Items are numbered group of heads by group of heads
+// (``group`` heads each, the last group maybe fewer), and within a group
+// heaviest first: every head's last query tile (the longest causal band),
+// then every head's tile before it, ...
 struct Work {
   int bh;        // batch * q_heads + head
   int q0;        // first query row
@@ -767,12 +787,16 @@ struct Work {
   int n_tiles;   // K/V tiles in the band
 };
 
-__device__ __forceinline__ Work work_item(int item, int heads, int q_heads,
-                                          int kv_heads, int sq, int sk,
-                                          int causal, int window) {
+__device__ __forceinline__ Work work_item(int item, int heads, int group,
+                                          int q_heads, int kv_heads, int sq,
+                                          int sk, int causal, int window) {
   Work w;
-  w.bh = item % heads;
-  w.q0 = (sq / kBlockM - 1 - item / heads) * kBlockM;
+  const int n_q = sq / kBlockM;
+  const int first = item / (group * n_q) * group;   // the group's first head
+  const int rest = item - first * n_q;              // item within the group
+  const int in_group = min(group, heads - first);
+  w.bh = first + rest % in_group;
+  w.q0 = (n_q - 1 - rest / in_group) * kBlockM;
   const int b = w.bh / q_heads;
   const int kvh = b * kv_heads + (w.bh - b * q_heads) / (q_heads / kv_heads);
   // The band of K/V tiles that hold a kept key for some row of the tile.
@@ -785,17 +809,20 @@ __device__ __forceinline__ Work work_item(int item, int heads, int q_heads,
   return w;
 }
 
-// Persistent: block i takes items i, i + gridDim.x, ...  The K/V ring runs
-// on across items, and the next item's Q loads while this item's last
+// Persistent: each block takes the next work item from ``next_item`` (a
+// global count from 0, one atomicAdd an item) until none is left, so the
+// blocks in flight work on the items of a group or two of heads at a time
+// (their K/V stay in L2) and finish together.  The K/V ring runs on
+// across items, and the next item's Q loads while this item's last
 // products and its output are still under way.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int heads, int q_heads,
-                   int kv_heads, int sq, int sk, float scale_log2, int causal,
-                   int window) {
+                   __nv_bfloat16* __restrict__ o, int* __restrict__ next_item,
+                   int heads, int group, int q_heads, int kv_heads, int sq,
+                   int sk, float scale_log2, int causal, int window) {
   using L = Layout<D>;
   constexpr int kSw = L::kSwizzle;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -807,9 +834,12 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
   const uint32_t s_v = s_k + kStages * L::kTileBytes;
   const uint32_t bars = s_v + kStages * L::kTileBytes;
   // full[stage] at bars + 8 stage, empty[stage] after them, then Q's
-  // full and empty
+  // full and empty, then the block's current work item: the producer
+  // writes it once Q is free (q_empty), the consumers read it once Q has
+  // landed (q_full); an item past the last ends the block
   const uint32_t q_full = bars + 16 * kStages;
   const uint32_t q_empty = q_full + 8;
+  const uint32_t s_item = q_empty + 8;
   const int n_items = heads * (sq / kBlockM);
 
   if (threadIdx.x == 0) {
@@ -828,12 +858,17 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers) {
       int g = 0;                                   // K/V tiles so far
-      int j = 0;                                   // items so far
-      for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
-        const Work w = work_item(item, heads, q_heads, kv_heads, sq, sk,
-                                 causal, window);
+      for (int j = 0;; ++j) {                      // items so far
+        const int item = atomicAdd(next_item, 1);
         // Q is free once every S of the block's previous item has landed.
         bar_wait(q_empty, (j & 1) ^ 1);
+        st_shared(s_item, item);
+        if (item >= n_items) {
+          bar_arrive(q_full);                      // the end, no copy
+          break;
+        }
+        const Work w = work_item(item, heads, group, q_heads, kv_heads, sq,
+                                 sk, causal, window);
         bar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
         for (int c = 0; c < L::kChunks; ++c)
@@ -877,25 +912,28 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     constexpr int kTileDesc = L::kTileBytes >> 4;   // a stage, in the
                                                     // descriptor's units
     int g = 0;                                      // K/V tiles so far
-    int j = 0;                                      // items so far
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++j) {
-      const Work w = work_item(item, heads, q_heads, kv_heads, sq, sk,
+    for (int j = 0;; ++j) {                         // items so far
+      // Accumulator layout of a 64 x N wgmma, per thread: element 4j + e
+      // is (row r0 + 8 (e >> 1), column 8j + c0 + (e & 1)).
+      float acc[L::kDPad / 2];
+#pragma unroll
+      for (int i = 0; i < L::kDPad / 2; ++i) acc[i] = 0.f;
+      float s[64];          // scores of a tile, then its float32 p
+      uint32_t p[32];       // p in bf16: the A fragments of P V
+      Softmax sm;
+
+      // Q and the item (a wait without bar_wait's timeout: ptxas makes
+      // room for one here by spilling P and acc at d = 80 and 128; a
+      // pipeline broken here still traps in the producer's next wait)
+      bar_spin(q_full, j & 1);
+      const int item = ld_shared(s_item);
+      if (item >= n_items) break;
+      const Work w = work_item(item, heads, group, q_heads, kv_heads, sq, sk,
                                causal, window);
       Rows rows;
       rows.q_lo = w.q0 + 64 * wg;                      // this warpgroup's
       rows.r0 = rows.q_lo + 16 * warp + (lane >> 2);   // rows r0, r0 + 8
       rows.c0 = 2 * (lane & 3);                        // columns c0, c0 + 1
-
-      // Accumulator layout of a 64 x N wgmma, per thread: element 4j + e
-      // is (row r0 + 8 (e >> 1), column 8j + c0 + (e & 1)).
-      float acc[D / 2];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-      float s[64];          // scores of a tile, then its float32 p
-      uint32_t p[32];       // p in bf16: the A fragments of P V
-      Softmax sm;
-
-      bar_wait(q_full, j & 1);
 
       // Tile 0: S alone.
       int st = g % kStages;
@@ -937,20 +975,19 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       bar_arrive(q_empty);               // every S of this item has landed
       g += w.n_tiles;
 
-      // The last tile's P V.  After the block's last item, warpgroup 1
-      // arrives for no further turn.
+      // The last tile's P V.
       named_sync(my_turn);
       wgmma_fence();
       issue_pv<D>(acc, p, dv + st * kTileDesc);
       wgmma_commit();
-      if (wg == 0 || item + gridDim.x < n_items) named_arrive(other_turn);
+      named_arrive(other_turn);
       wgmma_wait<0>();
       fence_regs(acc);
       bar_arrive(bars + 8 * (kStages + st));
 
       // l over the 4 threads of a row, then o = acc * (1 / l) (0 where
       // l == 0): within an ulp of acc / l in float32, far below the bf16
-      // rounding of o.
+      // rounding of o.  Only the first D columns of acc are written.
       float l0 = sm.l0, l1 = sm.l1;
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
@@ -970,6 +1007,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
             pack_bf16(acc[4 * c + 2] * inv1, acc[4 * c + 3] * inv1);
       }
     }
+    // Warpgroup 1 arrives on warpgroup 0's turn once more than warpgroup
+    // 0 takes a turn (the first arrival, before any item): the last one.
+    if (wg == 0) named_sync(my_turn);
   }
 }
 
@@ -999,7 +1039,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A 2-D map of a (rows, d) bf16 matrix whose box is one swizzled column
-// chunk of ``box_rows`` rows.
+// chunk of ``box_rows`` rows.  The map is d wide: a box that reaches past
+// column d (the last at d = 80) is filled with zeros there.
 template <int D>
 CUresult make_map(CUtensorMap* map, const void* ptr, uint64_t rows,
                   int box_rows) {
@@ -1021,9 +1062,9 @@ CUresult make_map(CUtensorMap* map, const void* ptr, uint64_t rows,
 
 // Returns a cudaError_t, or -CUresult if a tensor map could not be built.
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int q_heads, int kv_heads, int sq, int sk, float scale,
-           int causal, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           int* next_item, int batch, int q_heads, int kv_heads, int sq,
+           int sk, float scale, int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   const uint64_t kv_rows = static_cast<uint64_t>(batch) * kv_heads * sk;
   CUresult r = make_map<D>(&tq, q, static_cast<uint64_t>(batch) * q_heads * sq,
@@ -1037,17 +1078,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // One block an SM (a block takes 225 KB of shared memory at d = 128),
-  // each walking its share of the work items.
+  // each taking work items until none is left.  A
+  // group of heads has about as many items as there are blocks: the
+  // blocks in flight read the K/V of a group or two of heads (zamba2's 64
+  // heads hold 84 MB of K/V, more than the 50 MB of L2), and each group
+  // ends with its lightest items.
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int heads = batch * q_heads;
-  const int blocks = min(heads * (sq / kBlockM), sms);
+  const int n_q = sq / kBlockM;
+  const int blocks = min(heads * n_q, sms);
+  const int group = max(1, blocks / n_q);
   flash_kernel_wgmma<D><<<blocks, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), heads, q_heads, kv_heads,
-      sq, sk, scale * 1.4426950408889634f, causal, window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), next_item, heads, group,
+      q_heads, kv_heads, sq, sk, scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1059,45 +1106,56 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // contiguous and 16-byte aligned.  q_heads % kv_heads == 0; sq and sk
 // multiples of 128 (the JAX kernel's block); a causal or window mask only
 // with sq == sk.  Each returns cudaGetLastError() after its launch, and
-// cudaErrorInvalidValue, without a launch, for a head dim or dtype it was
-// not built for; the wrapper (kernels/flash_attention.py) picks the entry.
+// cudaErrorInvalidValue, without a launch, for a head dim it was not built
+// for; the wrapper (kernels/flash_attention.py) picks the entry by dtype.
 
-// The CUDA-core kernel: float32 (bf16 = 0) at d in {32, 64, 80, 128}, or
-// bf16 (bf16 = 1) at d = 80.
+// The CUDA-core kernel: float32 at d in {32, 64, 80, 128}.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int bf16, int batch, int q_heads,
-                               int kv_heads, int sq, int sk, int d,
-                               float scale, int causal, int window,
-                               void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return d == 80 ? static_cast<int>(launch<80, __nv_bfloat16>(
-                         q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
-                         causal, window, s))
-                   : static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch<float>(d, q, k, v, o, batch, q_heads,
-                                          kv_heads, sq, sk, scale, causal,
-                                          window, s));
-}
-
-// The Hopper kernel: bf16 at d in {32, 64, 128}.  A negative result is
-// -CUresult of cuTensorMapEncodeTiled (no launch).
-extern "C" int flash_attention_wgmma(const void* q, const void* k,
-                                     const void* v, void* o, int batch,
-                                     int q_heads, int kv_heads, int sq,
-                                     int sk, int d, float scale, int causal,
-                                     int window, void* stream) {
+                               void* o, int batch, int q_heads, int kv_heads,
+                               int sq, int sk, int d, float scale,
+                               int causal, int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return hopper::launch<32>(q, k, v, o, batch, q_heads, kv_heads, sq, sk,
-                                scale, causal, window, s);
+      return launch<32>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
+                        causal, window, s);
     case 64:
-      return hopper::launch<64>(q, k, v, o, batch, q_heads, kv_heads, sq, sk,
-                                scale, causal, window, s);
+      return launch<64>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
+                        causal, window, s);
+    case 80:
+      return launch<80>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
+                        causal, window, s);
     case 128:
-      return hopper::launch<128>(q, k, v, o, batch, q_heads, kv_heads, sq,
-                                 sk, scale, causal, window, s);
+      return launch<128>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
+                         causal, window, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The Hopper kernel: bf16 at d in {32, 64, 80, 128}.  ``next_item``: one
+// int32 of device memory, 0 at the launch (the count of work items
+// taken).  A negative result is -CUresult of cuTensorMapEncodeTiled (no
+// launch).
+extern "C" int flash_attention_wgmma(const void* q, const void* k,
+                                     const void* v, void* o, int* next_item,
+                                     int batch, int q_heads, int kv_heads,
+                                     int sq, int sk, int d, float scale,
+                                     int causal, int window, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return hopper::launch<32>(q, k, v, o, next_item, batch, q_heads,
+                                kv_heads, sq, sk, scale, causal, window, s);
+    case 64:
+      return hopper::launch<64>(q, k, v, o, next_item, batch, q_heads,
+                                kv_heads, sq, sk, scale, causal, window, s);
+    case 80:
+      return hopper::launch<80>(q, k, v, o, next_item, batch, q_heads,
+                                kv_heads, sq, sk, scale, causal, window, s);
+    case 128:
+      return hopper::launch<128>(q, k, v, o, next_item, batch, q_heads,
+                                 kv_heads, sq, sk, scale, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

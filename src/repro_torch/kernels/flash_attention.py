@@ -8,12 +8,11 @@ CPU path is chosen by ``ops.flash_attention`` from the tensor's device.
 The JAX kernel has no VJP, so neither has this one: an input that
 requires a gradient is refused.
 
-Two kernels, chosen by :func:`variant` from dtype and head dim alone:
-bf16 at :data:`WGMMA_HEAD_DIMS` runs on the Hopper kernel (``wgmma`` on
-the tensor cores, TMA, P rounded to bf16 before its product with V);
-every float32 call, and bf16 at head dim 80, on the CUDA-core kernel,
-which keeps P in float32.  A failure of the chosen kernel raises; no
-call is retried on the other.
+Two kernels, chosen by :func:`variant` from the dtype alone: every bf16
+call runs on the Hopper kernel (``wgmma`` on the tensor cores, TMA, P
+rounded to bf16 before its product with V), every float32 call on the
+CUDA-core kernel, which keeps P in float32.  A failure of the chosen
+kernel raises; no call is retried on the other.
 
 ``launches`` counts the kernel launches of this process,
 ``launches_by_variant`` the same launches by kernel.
@@ -33,13 +32,13 @@ SEQ_MULTIPLE = 128              # as the JAX kernel asserts; the Hopper
                                 # kernel's block of query rows
 DTYPES = (torch.float32, torch.bfloat16)
 
-# The dispatch.  bf16 at these head dims goes to the Hopper kernel: rows
-# of 64 or more bytes take TMA's 64- or 128-byte swizzle, which d = 80
-# (160-byte rows) does not.  bf16 at d = 80 and every float32 call go to
-# the CUDA-core kernel: a TF32 wgmma keeps 10 bits of mantissa and would
-# break the float32 contract (2e-4) with the JAX package.
-WGMMA_HEAD_DIMS = (32, 64, 128)
-VARIANTS = ("wgmma_bf16", "cuda_core_bf16", "cuda_core_f32")
+# The dispatch.  bf16 goes to the Hopper kernel at every head dim it
+# takes (d = 80 in column chunks of 32, the last one half filled with
+# zeros by TMA); float32 to the CUDA-core kernel: a TF32 wgmma keeps 10
+# bits of mantissa and would break the float32 contract (2e-4) with the
+# JAX package.
+WGMMA_HEAD_DIMS = HEAD_DIMS
+VARIANTS = ("wgmma_bf16", "cuda_core_f32")
 
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
@@ -48,29 +47,27 @@ _fns: dict = {}
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
-    """The kernel that takes a call of this dtype and head dim."""
-    if dtype == torch.bfloat16:
-        return "wgmma_bf16" if d in WGMMA_HEAD_DIMS else "cuda_core_bf16"
-    return "cuda_core_f32"
+    """The kernel that takes a call of this dtype, at any head dim of
+    :data:`HEAD_DIMS`."""
+    return "wgmma_bf16" if dtype == torch.bfloat16 else "cuda_core_f32"
 
 
 def _kernel(name: str):
-    """The C entry of a variant: ``flash_attention_wgmma`` or
-    ``flash_attention`` (the CUDA-core kernel, which takes a bf16 flag)."""
+    """The C entry of a variant: ``flash_attention_wgmma`` (bf16), which
+    also takes the kernel's work-item count after the output, or
+    ``flash_attention`` (the CUDA-core kernel, float32)."""
     if not _fns:
         lib = _build.library("flash_attention")
-        wgmma = lib.flash_attention_wgmma
-        wgmma.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                          + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p])
-        core = lib.flash_attention
-        core.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_void_p])
-        for fn in (wgmma, core):
+        for variant_name, entry, pointers in (
+                ("wgmma_bf16", "flash_attention_wgmma", 5),
+                ("cuda_core_f32", "flash_attention", 4)):
+            fn = getattr(lib, entry)
+            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 6
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        _fns.update(wgmma=wgmma, core=core)
-    return _fns["wgmma" if name == "wgmma_bf16" else "core"]
+            _fns[variant_name] = fn
+    return _fns[name]
 
 
 def _check(q, k, v, window):
@@ -140,13 +137,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = variant(q.dtype, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if name == "wgmma_bf16":
+        # the persistent kernel's count of work items taken, from 0 (freed
+        # on return: the allocator reuses it only behind this stream's work)
+        next_item = torch.zeros(1, dtype=torch.int32, device=q.device)
+        ptrs += (next_item.data_ptr(),)
     dims = (b, hq, hkv, sq, sk, d, 1.0 / d ** 0.5, int(causal), int(window),
             stream)
     with torch.cuda.device(q.device):
-        if name == "wgmma_bf16":
-            err = _kernel(name)(*ptrs, *dims)
-        else:
-            err = _kernel(name)(*ptrs, int(q.dtype == torch.bfloat16), *dims)
+        err = _kernel(name)(*ptrs, *dims)
     if err < 0:
         raise RuntimeError(f"flash_attention ({name}): cuTensorMapEncodeTiled "
                            f"failed, CUresult {-err}")

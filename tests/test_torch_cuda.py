@@ -784,11 +784,12 @@ def _attn_close(got, q, k, v, **mask):
 def test_flash_kernel_matches_plain_version(cuda, d, dtype):
     """MHA, GQA, MQA and a group of 16; causal, window 128, 200 (not a
     tile multiple) and 1, none; one and three query tiles of 128, and 2048
-    tokens (16 K/V tiles: the Hopper kernel's two-stage ring wraps 8
-    times); one launch a call, of the kernel the dispatch names: bf16 at
-    d = 32, 64, 128 on the Hopper kernel, the rest on the CUDA-core one."""
+    tokens (16 K/V tiles: the Hopper kernel's ring of 3 stages, 4 at
+    d = 80, wraps 4 to 5 times); one launch a call, of the kernel the
+    dispatch names: bf16 at
+    every head dim on the Hopper kernel, float32 on the CUDA-core one."""
     want_variant = ("cuda_core_f32" if dtype == torch.float32 else
-                    "cuda_core_bf16" if d == 80 else "wgmma_bf16")
+                    "wgmma_bf16")
     assert flash.variant(dtype, d) == want_variant
     gen = torch.Generator(device="cuda").manual_seed(d)
     cases = [(b, hq, hkv, s, causal, window)
@@ -812,13 +813,18 @@ def test_flash_kernel_matches_plain_version(cuda, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 200),
                                            (False, 0)])
-def test_flash_kernel_walks_more_tiles_than_sms(cuda, causal, window):
+@pytest.mark.parametrize("hkv,d", [(2, 128), (32, 80)],
+                         ids=["glm4-9b", "zamba2-2.7b"])
+def test_flash_kernel_walks_more_tiles_than_sms(cuda, hkv, d, causal,
+                                                window):
     """bf16 at glm4-9b's head geometry (32 query heads on 2 KV heads,
-    d = 128) and 1024 tokens: 512 (head, query tile) items, more than an
-    H100 has SMs, so each block of the persistent Hopper kernel walks
-    several, reloading Q and running the K/V ring on across them."""
+    d = 128) and at zamba2-2.7b's (32:32 heads, d = 80: three column
+    chunks of 32, the last half zeros) and 1024 tokens: 512 (head, query
+    tile) items, more than an H100 has SMs, so each block of the
+    persistent Hopper kernel walks several, reloading Q and running the
+    K/V ring on across them."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v = _attn(gen, 2, 32, 2, 1024, 128, torch.bfloat16)
+    q, k, v = _attn(gen, 2, 32, hkv, 1024, d, torch.bfloat16)
     assert (2 * 32 * 1024 // 128
             > torch.cuda.get_device_properties(cuda).multi_processor_count)
     before = flash.launches_by_variant["wgmma_bf16"]

@@ -209,14 +209,14 @@ def test_bf16_p_rounding_keeps_a_single_key_exact():
 
 
 def test_dispatch_is_explicit_by_dtype_and_head_dim():
-    """bf16 at 32, 64 and 128 (every full-width attention head dim of the
-    configs but zamba2's 80, and every SMOKE one) goes to the Hopper
-    kernel; bf16 at 80 and all float32 to the CUDA-core kernel."""
-    assert flash.WGMMA_HEAD_DIMS == (32, 64, 128)
+    """bf16 at every head dim of the configs (32, 64, 80 and 128, full
+    width and SMOKE) goes to the Hopper kernel; all float32 to the
+    CUDA-core kernel."""
+    assert flash.WGMMA_HEAD_DIMS == (32, 64, 80, 128)
+    assert flash.VARIANTS == ("wgmma_bf16", "cuda_core_f32")
     for d in flash.HEAD_DIMS:
         assert flash.variant(torch.float32, d) == "cuda_core_f32"
-        assert flash.variant(torch.bfloat16, d) == (
-            "cuda_core_bf16" if d == 80 else "wgmma_bf16")
+        assert flash.variant(torch.bfloat16, d) == "wgmma_bf16"
     assert set(flash.launches_by_variant) == set(flash.VARIANTS)
     head_dims = {get_config(n, smoke=smoke).head_dim for n in ARCH_NAMES
                  for smoke in (False, True)
