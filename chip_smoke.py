@@ -146,8 +146,15 @@ Phases, each printing one JSON line:
    names (every bf16 call on the Hopper kernel); ragged
    causal lengths through ``ops.flash_attention(..., ragged=True)`` (the
    ``xla_chunked`` path: padded to a multiple of 128, sliced back): 1000
-   and 1500 tokens, GQA, float32 and bf16, and window 200 at 1000, and a
-   ragged length with no mask must raise; float32
+   and 1500 tokens, GQA, float32 and bf16, and window 200 at 1000; the
+   key-length bound (``kv_len_check``): both kernels at every head dim,
+   K/V padded to a multiple of 128 with random padding, ``kv_len`` 1, 63,
+   64, 65, 127, 129 and 1500 with no mask, 4096 queries over 1536 keys at
+   ``kv_len`` 1500, causal over 1536 at ``kv_len`` 1500 and 1536 and
+   with a window of 200 at ``kv_len`` 1000 (bands that keep no key), each
+   against the plain version with the same ``kv_len`` and on the
+   unpadded tensors, and a ragged length with no mask (q 1000 over k/v
+   1500) through ``ops.flash_attention(..., ragged=True)``; float32
    within 2e-4 abs and rel (the JAX package's tolerance) and bf16 within
    that plus one bf16 rounding step (2^-7 of the value) plus
    ``ref.attention_rounding_bound`` (the Hopper kernel rounds P to bf16
@@ -158,7 +165,11 @@ Phases, each printing one JSON line:
    q, k, v (2, 32, 4096, 80), each a launch of the Hopper kernel, the
    last two repeated bit for bit;
 19. attn_time -- the Hopper kernel at glm4-9b's and at zamba2-2.7b's
-   shapes, and the float32 kernel (on the check paths only) at q (1, 32,
+   shapes, at head dim 64 at internvl2-1b's prefill (q (2, 14, 4352, 64),
+   k/v (2, 2, 4352, 64), causal), whisper-tiny's encoder ((2, 6, 1536,
+   64), ``kv_len`` 1500, no mask; its bound and SDPA over the 1500 real
+   rows) and its cross-attention (q (2, 6, 4096, 64) over those K/V),
+   each first held to the plain version; and the float32 kernel (on the check paths only) at q (1, 32,
    2048, 128), k/v (1, 2, 2048, 128), causal, with CUDA events, beside
    the plain version, ``F.scaled_dot_product_attention`` (the library
    yardstick, never called by the port; in float32 also held to the
@@ -186,7 +197,8 @@ Phases, each printing one JSON line:
    float32 logits); the bf16 step on the Hopper kernel, the float32 one
    on the CUDA-core kernel; and a ragged case, 1 x 1000 tokens through
    ``xla_chunked`` (blockwise, padded on the card), float32 activations,
-   card against CPU within 2e-4 abs and rel;
+   card against CPU within 2e-4 abs and rel; none of it launched by the
+   CPU run (``prefill_check``, shared with vlm_check and audio_check);
 23. decode -- ``serve.generate("glm4-9b", smoke=False, batch=4,
    prompt_len=32, gen=16)``, at full width and depth (random bf16 weights
    from seed 0): the prompt token by token through the serve step into a
@@ -284,13 +296,46 @@ Phases, each printing one JSON line:
    at 2 x 4096 take the profiler minutes) profiled by group (the sLSTM
    time loop, ``slstm_scan``; ``ssd_scan``; GEMMs; the rest), the labels'
    host time, the idle share against the same request unprofiled;
-36. total -- the script's seconds; kernels -- one line listing every
+36. vlm_check -- internvl2-1b at full width with 2 layers over 256
+   seeded patches and 256 tokens (``pallas``), the card against the port
+   on the CPU with the same weights (``prefill_check``): float32 logits
+   within 2e-4; the bf16 prefill step under ``bf16_contract`` (each side
+   against the CPU's float32 logits, the card's error at most 1.25 times
+   the CPU's, the two within twice it), the argmax differing only at near
+   ties; 2 launches each on the Hopper (bf16) and the CUDA-core (float32)
+   kernel; and 256 + 1000 tokens through ``xla_chunked`` (padded to 1280)
+   in float32 within 2e-4;
+37. vlm_decode -- ``serve.generate("internvl2-1b", ...)`` as ``decode``
+   (served without patches, as in the JAX package; the prompt contract's
+   prefill step takes an image of none);
+38. vlm_prefill -- its model through ``make_prefill_step``: one warm-up
+   and 4 requests of 2 x (256 seeded patches + 4096 tokens); p50,
+   tokens/s, peak, 24 flash launches a request on the Hopper kernel,
+   device time by group;
+39. audio_check -- whisper-tiny at full width and depth over 1500 seeded
+   frames and 256 tokens (``xla_chunked``: the encoder's and the
+   cross-attention's K/V padded to 1536, bounded by ``kv_len``), as
+   vlm_check (8 launches each), and the encoder's output and the cross
+   K/V in float32 within 2e-4, the bf16 cross K/V cache that
+   ``prefill_into_cache`` fills under ``bf16_contract``;
+40. audio_decode -- ``serve.generate("whisper-tiny", ...)`` as ``decode``:
+   the frames encoded once (4 flash launches a generate, at 1536 with
+   ``kv_len`` 1500), decode attention and the cross-attention against the
+   cached K/V plain torch;
+41. audio_prefill -- its model through ``make_prefill_step``: 2 x 4096
+   tokens over 2 x 1500 seeded frames, 12 flash launches a request (4
+   encoder, 4 decoder, 4 cross-attention: the timed requests count the
+   launches inside ``encode_audio`` and ``CrossBlock.forward``), device
+   time by group (``audio_encoder``, ``cross_attention``: the aten work
+   inside them);
+42. total -- the script's seconds; kernels -- one line listing every
    ported kernel with its launches,
    error, times, bound, launch floor and ``deterministic`` flag (and for
    flash attention the variant, and under ``variants``, keyed by variant
    and head dim, each one's time, registers and launches by path:
    ``wgmma_bf16_d128`` at glm4-9b's prefill shape, ``wgmma_bf16_d80`` at
-   zamba2's, ``cuda_core_f32_d128`` at attn_time's float32 shape, its
+   zamba2's, ``wgmma_bf16_d64_*`` at the vlm and whisper shapes,
+   ``cuda_core_f32_d128`` at attn_time's float32 shape, its
    error measured there, with its launches on the check paths; its SASS
    counts and its launches on every prefill and decode path;
    for the histogram and
@@ -301,8 +346,8 @@ Phases, each printing one JSON line:
    ``ops.traverse_chunk``.
 
 Each LM is freed before the next is built (glm4-9b's 17.6 GB,
-deepseek-moe-16b's 33.3 GB and zamba2-2.7b's 4.6 GB of weights are never
-resident together).
+deepseek-moe-16b's 33.3 GB, zamba2-2.7b's 4.6 GB, internvl2-1b's 1.0 GB
+and whisper-tiny's 0.07 GB of weights are never resident together).
 The new phases print their seconds.  Precision: float32 matrix products
 in full float32 (``allow_tf32`` off) and bf16 products reduced in float32
 (``allow_bf16_reduced_precision_reduction`` off), set and printed first.
@@ -529,13 +574,17 @@ def attn_bound_ms(b, hq, hkv, sq, sk, d, itemsize, causal) -> tuple:
     """The unmasked (query, key) pairs at 4d operations each over the
     peak rate of the dtype (bf16: the tensor cores; float32: the CUDA
     cores, since TF32 would break the 2e-4 contract), against q, k, v
-    read once and o written once over the HBM rate."""
+    read once and o written once over the HBM rate.  ``sk`` is the real
+    keys (a call's ``kv_len``), not its padding."""
     pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * sk)
     rate = BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
     t_ops = pairs * 4 * d / rate * 1e3
     nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+KV_LENS = (1, 63, 64, 65, 127, 129, 1500)   # attn_check's key-length bounds
 
 
 def attn_within(got, q, k, v, **mask) -> tuple[bool, float, float]:
@@ -556,33 +605,109 @@ def attn_within(got, q, k, v, **mask) -> tuple[bool, float, float]:
             float((diff / tol).max()))
 
 
-def attn_time(q, k, v, *, variant: str) -> dict:
-    """The flash kernel at q, k, v (causal) with CUDA events, beside the
-    plain version, ``F.scaled_dot_product_attention`` (the library
-    yardstick, never called by the port) and the bound; emits one
-    ``attn_time`` line and returns its numbers."""
+def kv_len_check(gen) -> dict:
+    """The flash kernels' key-length bound on the card, both variants at
+    every head dim: K/V padded to a multiple of 128 beyond ``kv_len`` (the
+    padding random, so that a key past the bound that were attended to
+    would show); no mask at each bound of ``KV_LENS`` (inside a tile, at
+    its edges, past the first tile, whisper's 1500 frames in 1536), 4096
+    queries over 1536 keys (sq != sk), causal over 1536 at ``kv_len`` 1500
+    and at ``kv_len`` = sk, causal with a window of 200 over 1536 at
+    ``kv_len`` 1000 (the last query tiles' bands keep no key: their rows
+    get 0); each against the plain version with the same
+    ``kv_len`` and against it on the unpadded tensors (the rows that exist
+    there).  Then a ragged length with no mask on ``xla_chunked``'s
+    blockwise path (``ops.flash_attention(..., ragged=True)``): q 1000
+    over k/v 1500, padded by their own lengths, one launch.  Returns the
+    ``attn_check`` fields."""
+    from repro_torch.kernels import flash_attention as flash, ops
+    cases = [(256, -(-n // 128) * 128, n, False, 0) for n in KV_LENS]
+    cases += [(4096, 1536, 1500, False, 0), (1536, 1536, 1500, True, 0),
+              (1536, 1536, 1536, True, 0), (1536, 1536, 1000, True, 200)]
+    err_by, share_by = (dict.fromkeys(flash.VARIANTS, 0.0) for _ in range(2))
+    n = 0
+    for sq, sk, kv_len, causal, window in cases:
+        for d in flash.HEAD_DIMS:
+            for dtype in (torch.float32, torch.bfloat16):
+                q = torch.randn((1, 6, sq, d), generator=gen,
+                                device="cuda").to(dtype)
+                k, v = (torch.randn((1, 2, sk, d), generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                name = flash.variant(dtype, d)
+                before = flash.launches_by_variant[name]
+                mask = dict(causal=causal, window=window)
+                got = flash.flash_attention_cuda(q, k, v, kv_len=kv_len,
+                                                 **mask)
+                torch.cuda.synchronize()
+                rows = kv_len if causal else sq
+                ok, err, share = attn_within(got, q, k, v, kv_len=kv_len,
+                                             **mask)
+                ok_u, err_u, share_u = attn_within(
+                    got[:, :, :rows], q[:, :, :rows], k[:, :, :kv_len],
+                    v[:, :, :kv_len], **mask)
+                check(ok and ok_u and got.shape == q.shape
+                      and flash.launches_by_variant[name] == before + 1,
+                      f"flash kernel ({name}) with kv_len {kv_len} != plain "
+                      f"version (sq={sq}, sk={sk}, causal={causal}, window="
+                      f"{window}, d={d}, {dtype}, max_abs_err={err} / "
+                      f"{err_u} unpadded, share of tolerance {share} / "
+                      f"{share_u})")
+                err_by[name] = max(err_by[name], err, err_u)
+                share_by[name] = max(share_by[name], share, share_u)
+                n += 1
+    q = torch.randn((1, 6, 1000, 64), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((1, 6, 1500, 64), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    before = flash.launches
+    got = ops.flash_attention(q, k, v, causal=False, ragged=True)
+    torch.cuda.synchronize()
+    ok, no_mask_err, no_mask_share = attn_within(got, q, k, v, causal=False)
+    check(ok and flash.launches == before + 1 and got.shape == q.shape,
+          f"ragged flash with no mask (q 1000, k/v 1500) != plain version "
+          f"(max_abs_err={no_mask_err}, share {no_mask_share})")
+    return {"cases": n + 1, "kv_lens": list(KV_LENS), "max_abs_err": err_by,
+            "max_share_of_tolerance": share_by,
+            "ragged_no_mask_q1000_kv1500": {
+                "max_abs_err": no_mask_err,
+                "share_of_tolerance": no_mask_share}}
+
+
+def attn_time(q, k, v, *, variant: str, causal: bool = True,
+              kv_len: int | None = None, q_len: int | None = None,
+              name: str | None = None) -> dict:
+    """The flash kernel at q, k, v (K/V padded beyond ``kv_len``, q beyond
+    ``q_len``) with CUDA events, beside the plain version on the same
+    inputs, ``F.scaled_dot_product_attention`` (the library yardstick,
+    never called by the port) on the unpadded tensors, and the bound of
+    the real queries' and keys' work; emits one ``attn_time`` line and
+    returns its numbers."""
     from repro_torch.kernels import flash_attention as flash, ref
     t_phase = time.perf_counter()
-    b, hq, s, d = q.shape
+    b, hq, _, d = q.shape
+    sk = k.shape[2] if kv_len is None else kv_len
+    sq = q.shape[2] if q_len is None else q_len
     ms, issue_ms = cuda_ms(lambda: flash.flash_attention_cuda(
-        q, k, v, causal=True), iters=10, warmup=2)
-    plain_ms, _ = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True),
-                          iters=3, warmup=1)
+        q, k, v, causal=causal, kv_len=kv_len), iters=10, warmup=2)
+    plain_ms, _ = cuda_ms(lambda: ref.attention_ref(
+        q, k, v, causal=causal, kv_len=kv_len), iters=3, warmup=1)
     gqa = hq != k.shape[1]
+    qu, ku, vu = q[:, :, :sq], k[:, :, :sk], v[:, :, :sk]
     library_ms, _ = cuda_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=gqa), iters=10, warmup=2)
-    bound_ms, bound_by = attn_bound_ms(b, hq, k.shape[1], s, s, d,
-                                       q.element_size(), True)
-    flops = b * hq * s * (s + 1) // 2 * 4 * d
+            qu, ku, vu, is_causal=causal, enable_gqa=gqa), iters=10,
+        warmup=2)
+    bound_ms, bound_by = attn_bound_ms(b, hq, k.shape[1], sq, sk, d,
+                                       q.element_size(), causal)
+    flops = b * hq * (sq * (sq + 1) // 2 if causal else sq * sk) * 4 * d
     out = dict(ms=ms, issue_ms=issue_ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                tflops=flops / (ms * 1e-3) / 1e12,
                library_tflops=flops / (library_ms * 1e-3) / 1e12,
-               share_of_bound=bound_ms / ms)
-    emit("attn_time", kernel="flash_attention", variant=variant,
-         shape=dict(q=list(q.shape), kv=list(k.shape), causal=True,
-                    dtype=str(q.dtype)[6:]),
+               share_of_bound=bound_ms / ms, gflop=flops / 1e9)
+    emit("attn_time", kernel="flash_attention", variant=variant, name=name,
+         shape=dict(q=list(q.shape), kv=list(k.shape), q_len=sq,
+                    kv_len=sk, causal=causal, dtype=str(q.dtype)[6:]),
          kernel_us=ms * 1e3, **out,
          bound_peak_tflops=(BF16_OPS_PER_S if q.element_size() == 2
                             else FP32_OPS_PER_S) / 1e12,
@@ -647,15 +772,14 @@ def sass_atomics(lib: Path) -> dict | None:
     return {op: ops.count(op) for op in sorted(set(ops))}
 
 
-def float32_logits(model, cfg, tokens) -> torch.Tensor:
+def float32_logits(model, cfg, tokens, **extra) -> torch.Tensor:
     """The prefill's logits with float32 activations: the same modules and
-    weights (bf16 weights widen exactly), no bf16 rounding in between."""
+    weights (bf16 weights widen exactly), no bf16 rounding in between;
+    ``extra`` the request's patches or frames."""
     with torch.inference_mode():
-        t = torch.as_tensor(tokens, device=model.embed.table.device)
-        x = model.embed(t, dtype=torch.float32)
-        positions = torch.arange(t.shape[1], device=x.device).expand(*t.shape)
-        x, _ = model.backbone(cfg, x, positions)
-        return model.logits(model.ln_f(x)).float().cpu()
+        x, _ = model.hidden({"tokens": tokens, **extra}, cfg=cfg,
+                            dtype=torch.float32)
+        return model.logits(x).float().cpu()
 
 
 def float32_decode(model, cfg, state, tokens, pos, *, window=0):
@@ -769,16 +893,25 @@ def within_f32(got, want) -> tuple[bool, float]:
 
 
 @contextlib.contextmanager
-def labelled(patches):
+def labelled(patches, launches: dict | None = None):
     """Run the ``with`` block with each ``(module, name, label)``'s
-    function wrapped in ``torch.profiler.record_function(label)``."""
+    function wrapped in ``torch.profiler.record_function(label)``, or,
+    given ``launches``, adding to ``launches[label]`` the flash launches
+    made inside the function."""
+    from repro_torch.kernels import flash_attention as flash
     saved = []
     for mod, name, label in patches:
         real = getattr(mod, name)
 
         def wrapped(*a, _real=real, _label=label, **kw):
-            with torch.profiler.record_function(_label):
-                return _real(*a, **kw)
+            if launches is None:
+                with torch.profiler.record_function(_label):
+                    return _real(*a, **kw)
+            before = flash.launches
+            out = _real(*a, **kw)
+            launches[_label] = launches.get(_label, 0) + flash.launches \
+                - before
+            return out
         saved.append((mod, name, real))
         setattr(mod, name, wrapped)
     try:
@@ -1231,6 +1364,10 @@ def dist_rank(tasks: tuple) -> dict:
 # ---------------------------------------------------------------------------
 
 SSM_ARCH, HYBRID_ARCH = "xlstm-125m", "zamba2-2.7b"
+VLM_ARCH, AUDIO_ARCH = "internvl2-1b", "whisper-tiny"
+# vlm_check / audio_check: text tokens after the 256 patches (pallas:
+# 512 in all) or beside the 1500 frames; the vlm's ragged causal case
+CHECK_TEXT, RAGGED_TEXT = 256, 1000
 # ssm_check / hybrid_check: 2 chunks of 256 tokens, then decode steps
 RECURRENT_TOKENS, RECURRENT_STEPS = 512, 16
 # the JAX package's chunked-vs-sequential tolerance (tests/test_ssm.py)
@@ -1252,38 +1389,28 @@ def prompt_contract(phase: str, model, cfg, run) -> dict:
     ``serve.generate``: the prompt once more through
     ``prefill_into_cache``, keeping every position's logits) against the
     card's own prefill step over the prompt, under the prefill's
-    contract: each against the float32 logits, the decode path's error at
-    most 1.25 times the prefill step's, the two within twice that error,
-    the argmax differing only at near ties."""
+    contract (``bf16_contract``, the prefill step in the CPU's place).  A
+    vlm request is served without patches, so its prefill step takes an
+    image of none."""
     from repro_torch.launch import serve as serve_lm
     from repro_torch.launch.steps import make_prefill_step
     s, gen = run.prompts.shape[1], run.tokens.shape[1]
+    extra = {k: t for k, t in run.batch.items() if k != "tokens"}
+    if cfg.family == "vlm":
+        extra["patches"] = torch.zeros((run.prompts.shape[0], 0,
+                                        cfg.d_model), device="cuda")
     prefill_logits = make_prefill_step(cfg)(
-        model, {"tokens": run.prompts}).float().cpu()
-    f32 = float32_logits(model, cfg, run.prompts)
+        model, {"tokens": run.prompts, **extra}).float().cpu()
+    f32 = float32_logits(model, cfg, run.prompts, **extra)
     seen: list = []
     last, _, _ = serve_lm.prefill_into_cache(
-        model, cfg, {"tokens": run.prompts}, s + gen, prompt_logits=seen)
+        model, cfg, run.batch, s + gen, prompt_logits=seen)
     check(torch.equal(last, run.last_logits),
           f"{phase}: the prompt's second pass into a cache differs from the "
           "first")
     dec = torch.cat(seen, 1).float().cpu()
-    prefill_err = float((prefill_logits - f32).abs().max())
-    dec_err = float((dec - f32).abs().max())
-    dec_diff = float((dec - prefill_logits).abs().max())
-    agree, differ, _ = argmax_agreement(dec, prefill_logits)
-    _, _, gap_f32 = argmax_agreement(dec, f32)
-    ties_ok = bool((gap_f32[differ].abs() <= 2 * prefill_err).all())
-    check(dec_diff <= 2 * prefill_err and dec_err <= 1.25 * prefill_err
-          and ties_ok,
-          f"{phase}: prompt logits {dec_diff} from the prefill step's (bound "
-          f"{2 * prefill_err}: twice its bf16 error against the float32 "
-          f"logits); the decode path's error {dec_err} (bound "
-          f"{1.25 * prefill_err}); argmax agreement {agree}, near ties "
-          f"{ties_ok}")
-    return {"max_abs_err": dec_diff, "bound": 2 * prefill_err,
-            "decode_err_vs_f32": dec_err, "prefill_err_vs_f32": prefill_err,
-            "argmax_agreement": agree}
+    return bf16_contract(phase, "prompt logits of the decode path", dec,
+                         prefill_logits, f32, argmax=True)
 
 
 def recurrent_check(phase: str, arch: str, n_layers: int, seed: int,
@@ -1426,12 +1553,176 @@ def recurrent_check(phase: str, arch: str, n_layers: int, seed: int,
     return out
 
 
+def bf16_contract(phase: str, what: str, card, host, host_f32, *,
+                  argmax: bool = False) -> dict:
+    """The card's bf16 result against the CPU's under the prefill's
+    contract: each side against the CPU's float32 result, the card's
+    error at most 1.25 times the CPU's, the two within twice it; for
+    logits (``argmax``) the argmax of the two differing only at near ties
+    (a gap in the float32 logits within that bound)."""
+    card, host, host_f32 = card.float(), host.float(), host_f32.float()
+    cpu_err = float((host - host_f32).abs().max())
+    card_err = float((card - host_f32).abs().max())
+    diff = float((card - host).abs().max())
+    check(bool(torch.isfinite(card).all()) and diff <= 2 * cpu_err
+          and card_err <= 1.25 * cpu_err,
+          f"{phase}: bf16 {what} on the card {diff} from the CPU's (bound "
+          f"{2 * cpu_err}: twice the CPU's own bf16 error against its "
+          f"float32 result); the card's error {card_err} (bound "
+          f"{1.25 * cpu_err}), or not finite")
+    out = {"max_abs_err": diff, "bound": 2 * cpu_err,
+           "card_err_vs_f32": card_err, "cpu_err_vs_f32": cpu_err}
+    if argmax:
+        agree, differ, _ = argmax_agreement(card, host)
+        _, _, gap_f32 = argmax_agreement(card, host_f32)
+        tie_gap = float(gap_f32[differ].abs().max()) if bool(differ.any()) \
+            else 0.0
+        check(tie_gap <= 2 * cpu_err, f"{phase}: an argmax of the {what} "
+              f"differs beyond a near tie ({tie_gap}, agreement {agree})")
+        out.update(argmax_agreement=agree,
+                   argmax_agreement_vs_f32={
+                       "card": argmax_agreement(card, host_f32)[0],
+                       "cpu": argmax_agreement(host, host_f32)[0]},
+                   max_argmax_tie_gap_f32=tie_gap)
+    return out
+
+
+def prefill_check(phase: str, arch: str, seed: int, rng) -> dict:
+    """The prefill step at full width, the card against the port on the
+    CPU with the same weights (the CPU's a float32 copy of the card's bf16
+    weights: each product rounds them to the activations' dtype, so its
+    bf16 run is the bf16 model's): glm4-9b or internvl2-1b with 2 layers
+    over ``CHECK_TEXT`` tokens (``pallas``; internvl2-1b's 256 seeded
+    patches before them), whisper-tiny at full depth over 1500 seeded
+    frames (``xla_chunked``: the encoder and the cross-attention
+    blockwise, K/V padded to 1536 and bounded by ``kv_len``).  float32
+    logits within 2e-4; the bf16 prefill step under ``bf16_contract``;
+    the flash launches of each (the bf16 step on the Hopper kernel,
+    float32 on the CUDA-core one), none on the CPU.  glm4-9b and
+    internvl2-1b also at a ragged causal length (``RAGGED_TEXT`` text
+    tokens through ``xla_chunked``: 1000 padded to 1024, 256 + 1000 to
+    1280), float32 within 2e-4; whisper-tiny also the encoder's output
+    and the cross K/V in float32 within 2e-4, and the bf16 cross K/V
+    cache that ``serve.prefill_into_cache`` fills under
+    ``bf16_contract``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    if cfg.family != "audio":
+        cfg = dataclasses.replace(cfg, n_layers=2, attn_impl="pallas")
+    card = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    host = init_params(cfg, device="meta", dtype=torch.float32)
+    host.load_state_dict({k: v.to("cpu", torch.float32) for k, v in
+                          card.state_dict().items()}, assign=True,
+                         strict=True)
+    tokens = rng.integers(0, cfg.vocab_size, size=(1, CHECK_TEXT))
+    extra = frontend(cfg, 1, seed)
+    host_extra = {k: t.cpu() for k, t in extra.items()}
+    launches = flash_per_request(cfg)
+    if cfg.family == "audio":       # the decoder's 256 x 256: naive
+        launches -= cfg.n_layers
+    step = make_prefill_step(cfg)
+    reset_counts()
+    card_bf16 = step(card, {"tokens": tokens, **extra}).float().cpu()
+    bf16_launches = dict(flash.launches_by_variant)
+    reset_counts()
+    card_f32 = float32_logits(card, cfg, tokens, **extra)
+    f32_launches = dict(flash.launches_by_variant)
+    check(bf16_launches == {"wgmma_bf16": launches, "cuda_core_f32": 0}
+          and f32_launches == {"wgmma_bf16": 0, "cuda_core_f32": launches},
+          f"{phase}: flash launches bf16 {bf16_launches}, float32 "
+          f"{f32_launches}, want {launches} each on its kernel")
+    ragged_cfg = dataclasses.replace(cfg, attn_impl="xla_chunked")
+    if cfg.family != "audio":
+        ragged = rng.integers(0, cfg.vocab_size, size=(1, RAGGED_TEXT))
+        reset_counts()
+        card_ragged = float32_logits(card, ragged_cfg, ragged, **extra)
+        ragged_launches = dict(flash.launches_by_variant)
+    card_total = flash.launches
+    t_cpu = time.perf_counter()
+    host_f32 = float32_logits(host, cfg, tokens, **host_extra)
+    host_bf16 = step(host, {"tokens": tokens, **host_extra}).float()
+    if cfg.family != "audio":
+        host_ragged = float32_logits(host, ragged_cfg, ragged, **host_extra)
+    cpu_seconds = time.perf_counter() - t_cpu
+    check(flash.launches == card_total,
+          f"{phase}: the CPU run launched the flash kernel")
+    ok, f32_err = within_f32(card_f32, host_f32)
+    check(ok and bool(torch.isfinite(card_f32).all()),
+          f"{phase}: float32 logits on the card differ from the CPU's "
+          f"beyond {ATTN_F32_TOL} (max_abs_err={f32_err})")
+    logits = bf16_contract(phase, "logits", card_bf16, host_bf16, host_f32,
+                           argmax=True)
+    out = dict(arch=arch, n_layers=cfg.n_layers, attn_impl=cfg.attn_impl,
+               tokens=list(tokens.shape),
+               frontend={k: list(t.shape) for k, t in extra.items()},
+               weights=f"random bf16, seed {seed}",
+               flash_launches_bf16=bf16_launches,
+               flash_launches_f32=f32_launches,
+               f32_logits_max_abs_err=f32_err,
+               f32_tolerance={"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
+               bf16_logits=logits, cpu_seconds=cpu_seconds)
+    if cfg.family != "audio":
+        n_front = sum(t.shape[1] for t in extra.values())
+        ok, ragged_err = within_f32(card_ragged, host_ragged)
+        check(ok and card_ragged.shape[1] == RAGGED_TEXT
+              and ragged_launches == {"wgmma_bf16": 0,
+                                      "cuda_core_f32": cfg.n_layers},
+              f"{phase} ({n_front} + {RAGGED_TEXT} tokens, xla_chunked): "
+              f"float32 logits {ragged_err} from the CPU's, or launches "
+              f"{ragged_launches}, want {cfg.n_layers} on cuda_core_f32")
+        out["ragged"] = {"tokens": [1, n_front + RAGGED_TEXT],
+                         "padded_to": -(-(n_front + RAGGED_TEXT) // 128)
+                         * 128, "attn_impl": ragged_cfg.attn_impl,
+                         "flash_launches": ragged_launches,
+                         "f32_logits_max_abs_err": ragged_err}
+    else:
+        with torch.inference_mode():
+            enc = {dev: m.encode_audio(cfg, x["frames"], dtype=torch.float32)
+                   for dev, m, x in (("cuda", card, extra),
+                                     ("cpu", host, host_extra))}
+            cross = {dev: torch.stack([torch.stack([
+                blk.attn.wk(enc[dev]), blk.attn.wv(enc[dev])])
+                for blk in m.cross_layers]).cpu()
+                for dev, m in (("cuda", card), ("cpu", host))}
+        ok, enc_err = within_f32(enc["cuda"], enc["cpu"])
+        ok_kv, kv_err = within_f32(cross["cuda"], cross["cpu"])
+        check(ok and ok_kv, f"{phase}: float32 encoder output {enc_err} or "
+              f"cross K/V {kv_err} on the card from the CPU's, beyond "
+              f"{ATTN_F32_TOL}")
+        prompt = {"tokens": tokens[:, :8]}
+        caches = {dev: serve_lm.prefill_into_cache(
+            m, cfg, {**prompt, **x}, 8)[1] for dev, m, x in
+            (("cuda", card, extra), ("cpu", host, host_extra))}
+        f32_kv = cross["cpu"].reshape(cfg.n_layers, 2, *caches["cpu"][
+            "cross_k"].shape[1:])
+        cache = {name: bf16_contract(
+            phase, name, caches["cuda"][name].cpu(), caches["cpu"][name],
+            f32_kv[:, i]) for i, name in enumerate(("cross_k", "cross_v"))}
+        out.update(encoder_f32_max_abs_err=enc_err,
+                   cross_kv_f32_max_abs_err=kv_err,
+                   cross_kv_cache_bf16=cache)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(phase, **out)
+    del card, host
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_phase(phase: str, arch: str):
     """``serve.generate(arch, smoke=False)`` with decode's arguments, at
     full width and depth: the prefill-into-cache seconds, each step's ms,
-    tokens/s, peak memory, no launch of a kernel of the port, the prompt
-    contract, one profiled step's device time and idle share.  Returns
-    (the run, the launch counts)."""
+    tokens/s, peak memory, no launch of a kernel of the port but the audio
+    encoder's flash launches (one an encoder layer, all ``wgmma_bf16``,
+    at 1500 frames padded to 1536), the prompt contract, one profiled
+    step's device time and idle share.  Returns (the run, the launch
+    counts)."""
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch import serve as serve_lm
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1440,17 +1731,20 @@ def serve_phase(phase: str, arch: str):
     run = serve_lm.generate(arch, smoke=False, **DECODE)
     torch.cuda.synchronize()
     counts = read_counts()
+    by_variant = dict(flash.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
     cfg, model = run.cfg, run.model
     b, s, gen = DECODE["batch"], DECODE["prompt_len"], DECODE["gen"]
-    check(sum(counts) == 0 and run.tokens.shape == (b, gen)
+    want = (cfg.n_encoder_layers if cfg.family == "audio" else 0)
+    check(counts[-1] == want == by_variant["wgmma_bf16"]
+          and sum(counts[:-1]) == 0 and run.tokens.shape == (b, gen)
           and run.last_logits.shape == (b, 1, cfg.vocab_size)
           and bool(torch.isfinite(run.last_logits).all())
           and torch.equal(run.tokens[:, 0],
                           run.last_logits[:, -1].argmax(-1)),
           f"{phase}: tokens {tuple(run.tokens.shape)}, last logits not "
           f"finite or not the first token's, or kernels of the port "
-          f"launched: {counts}")
+          f"launched: {counts} ({by_variant}), want {want} flash launches")
     contract = prompt_contract(phase, model, cfg, run)
     busy, ops = serve_step_profile(model, cfg, b, s + gen, s)
     emit(phase, arch=arch, n_layers=cfg.n_layers,
@@ -1462,49 +1756,85 @@ def serve_phase(phase: str, arch: str):
          device_ms_per_step=busy,
          device_idle_share=1 - busy / run.step_p50_ms, by_op=ops,
          max_memory_allocated_gb=peak / 1e9, flash_launches=counts[-1],
+         flash_launches_by_variant=by_variant,
+         frames=list(run.batch["frames"].shape) if "frames" in run.batch
+         else None,
          tokens=run.tokens.tolist(), prompt_logits_vs_prefill=contract,
          seconds=time.perf_counter() - t_phase)
     return run, counts
 
 
-def prefill_phase(phase: str, model, cfg, rng, *, labels, variant) -> int:
+def flash_per_request(cfg) -> int:
+    """The prefill's flash launches a request: one a shared-block group
+    (hybrid), one an attention layer (vlm), one an encoder layer, decoder
+    layer and cross-attention block (audio), none in the ssm family."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def frontend(cfg, batch: int, seed: int) -> dict:
+    """The stub frontend's input of a request, seeded bf16 on the card:
+    ``patches`` (vlm) or ``frames`` (audio), (batch, n_frontend_tokens,
+    d_model); nothing in the other families."""
+    name = {"vlm": "patches", "audio": "frames"}.get(cfg.family)
+    if name is None:
+        return {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                              generator=gen, device="cuda").bfloat16()}
+
+
+def prefill_phase(phase: str, model, cfg, rng, *, labels, variant) -> dict:
     """``make_prefill_step`` at full width and depth: one warm-up, then
-    ``LM_REQUESTS`` (zamba2) or ``SSM_REQUESTS`` (xlstm) requests of 2 x
-    4096 tokens: p50 ms, tokens/s, peak memory, the flash launches (a
-    shared-block group's one a request, all on ``variant``; none in the
-    ssm family); one request's device time by group (``labels``: the
-    ``record_function`` ranges around ``ssm`` functions, beside flash,
-    GEMMs and the rest), the labels' host ms, the idle share (xlstm's
-    request profiled at ``SSM_PROFILE_SEQ`` tokens a row, against an
-    unprofiled request of that length).  Returns the flash launches of
-    the timed requests (``variant`` None: there must be none)."""
+    ``LM_REQUESTS`` (zamba2, internvl2-1b, whisper-tiny) or
+    ``SSM_REQUESTS`` (xlstm) requests of 2 x 4096 text tokens (with 256
+    seeded patches before them, or 1500 seeded frames): p50 ms, tokens/s,
+    peak memory, the flash launches (``flash_per_request``, all on
+    ``variant``; none in the ssm family); one request's device time by
+    group (``labels``: the ``record_function`` ranges around ``ssm``
+    functions or the audio encoder, beside flash, GEMMs and the rest), the
+    labels' host ms, the idle share (xlstm's request profiled at
+    ``SSM_PROFILE_SEQ`` tokens a row, against an unprofiled request of
+    that length).  The timed requests also count the flash launches made
+    inside each label's function (whisper's: 4 a request in the encoder, 4
+    in the cross-attention blocks, the rest in the decoder's
+    self-attention).  Returns the flash launches of the timed requests
+    (``variant`` None: there must be none): in all, a request and by
+    label."""
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.steps import make_prefill_step
     t_phase = time.perf_counter()
-    requests = LM_REQUESTS if cfg.family == "hybrid" else SSM_REQUESTS
-    per_request = (cfg.n_layers // cfg.attn_every
-                   if cfg.family == "hybrid" else 0)
+    requests = SSM_REQUESTS if cfg.family == "ssm" else LM_REQUESTS
+    per_request = flash_per_request(cfg)
     step = make_prefill_step(cfg)
-    batches = [rng.integers(0, cfg.vocab_size, size=(LM_BATCH, LM_SEQ))
-               for _ in range(requests + 1)]
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size,
+                                       size=(LM_BATCH, LM_SEQ)),
+                **frontend(cfg, LM_BATCH, 9 + i)}
+               for i in range(requests + 1)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    logits = step(model, {"tokens": batches[0]})            # warm-up
+    logits = step(model, batches[0])                          # warm-up
     torch.cuda.synchronize()
     del logits
     walls = []
+    names = [label for *_, label in labels]
+    by_label = dict.fromkeys(names, 0)
     reset_counts()
-    for tokens in batches[1:]:
-        t0 = time.perf_counter()
-        logits = step(model, {"tokens": tokens})
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        check(logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
-              and logits.dtype == torch.bfloat16
-              and bool(torch.isfinite(logits).all()),
-              f"{phase} logits {tuple(logits.shape)} {logits.dtype}, or not "
-              "finite")
-        del logits
+    with labelled(labels, launches=by_label):
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            logits = step(model, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check(logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab_size)
+                  and logits.dtype == torch.bfloat16
+                  and bool(torch.isfinite(logits).all()),
+                  f"{phase} logits {tuple(logits.shape)} {logits.dtype}, or "
+                  "not finite")
+            del logits
     counts = read_counts()
     by_variant = dict(flash.launches_by_variant)
     check(counts[-1] == per_request * requests
@@ -1513,19 +1843,25 @@ def prefill_phase(phase: str, model, cfg, rng, *, labels, variant) -> int:
           f"{phase}: {counts[-1]} flash launches for {requests} requests "
           f"({by_variant}), want {per_request} a request, all {variant}, "
           "and no other kernel")
+    if cfg.family == "audio":
+        want = {"audio_encoder": cfg.n_encoder_layers * requests,
+                "cross_attention": cfg.n_layers * requests}
+        check(by_label == want, f"{phase}: flash launches by label "
+              f"{by_label}, want {want}")
+        by_label["decoder_self_attention"] = counts[-1] - sum(
+            by_label.values())
     peak = torch.cuda.max_memory_allocated()
     p50 = float(np.median(walls))
-    names = [label for *_, label in labels]
-    profiled = batches[1][:, :LM_SEQ if cfg.family == "hybrid"
-                          else SSM_PROFILE_SEQ]
+    profiled = dict(batches[1], tokens=batches[1]["tokens"][
+        :, :SSM_PROFILE_SEQ if cfg.family == "ssm" else LM_SEQ])
     t0 = time.perf_counter()
-    logits = step(model, {"tokens": profiled})
+    logits = step(model, profiled)
     torch.cuda.synchronize()
     profiled_wall = time.perf_counter() - t0
     with labelled(labels), torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        logits = step(model, {"tokens": profiled})
+        logits = step(model, profiled)
         torch.cuda.synchronize()
     del logits
     groups, busy = device_ms_by_group(prof, names)
@@ -1537,6 +1873,8 @@ def prefill_phase(phase: str, model, cfg, rng, *, labels, variant) -> int:
          vocab_size=cfg.vocab_size,
          params=sum(p.numel() for p in model.parameters()),
          weights_gb=lm_bytes(model) / 1e9, batch=LM_BATCH, seq=LM_SEQ,
+         frontend={k: list(t.shape) for k, t in batches[1].items()
+                   if k != "tokens"},
          reduced=["shape: prefill_32k 32 x 32768 -> 2 x 4096 tokens"],
          requests=requests, warmup_requests=1,
          request_ms=[w * 1e3 for w in walls], p50_ms=p50 * 1e3,
@@ -1544,14 +1882,16 @@ def prefill_phase(phase: str, model, cfg, rng, *, labels, variant) -> int:
          max_memory_allocated_gb=peak / 1e9, flash_launches=counts[-1],
          flash_launches_per_request=counts[-1] / requests,
          flash_launches_by_variant=by_variant,
-         profiled_tokens=list(profiled.shape),
+         flash_launches_by_label=by_label,
+         profiled_tokens=list(profiled["tokens"].shape),
          profiled_wall_ms=profiled_wall * 1e3, device_ms_per_request=busy,
          device_idle_share=1 - busy / (profiled_wall * 1e3),
          by_group_ms=groups, by_group_share=shares(groups, busy),
          label_host_ms=host_ms,
          by_op=by_kernel(prof, 1, "request", ops=True)[:12],
          seconds=time.perf_counter() - t_phase)
-    return counts[-1]
+    return {"launches": counts[-1], "per_request": counts[-1] / requests,
+            "by_label": by_label}
 
 
 def long_phase(model, cfg) -> None:
@@ -1654,7 +1994,8 @@ def main() -> int:
     from repro_torch.launch import serve as serve_lm
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import attention as attn_lib, init_decode_state, \
-        init_params, layers as lm_layers, moe as moe_lib, ssm as ssm_lib
+        init_params, layers as lm_layers, model as model_lib, moe as moe_lib, \
+        ssm as ssm_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -2864,12 +3205,8 @@ def main() -> int:
                   f"(max_abs_err={err}, share of tolerance {share})")
             ragged_err[case], ragged_share[case] = err, share
             n_attn += 1
-    try:
-        ops.flash_attention(q, k, v, causal=False, ragged=True)
-        raise RuntimeError("chip_smoke: a ragged length with no mask ran "
-                           "on the card; it must raise")
-    except ValueError as e:
-        ragged_refusal = str(e)
+    kv_check = kv_len_check(gen)
+    n_attn += kv_check["cases"]
     # the moe prefill's shape: deepseek-moe-16b's MHA 16:16, 2 x 4096
     mha_cfg = get_config(MOE_ARCH)
     mq, mk, mv = attn_case(LM_BATCH, mha_cfg.n_heads, mha_cfg.n_kv_heads,
@@ -2940,8 +3277,8 @@ def main() -> int:
          repeat_equal={"d128": repeats["flash_attention"],
                        "d80": repeats["flash_attention_d80"]},
          ragged={"max_abs_err": ragged_err,
-                 "share_of_tolerance": ragged_share,
-                 "no_mask_raises": ragged_refusal},
+                 "share_of_tolerance": ragged_share},
+         kv_len=kv_check,
          seconds=time.perf_counter() - t_phase)
 
     # 19. attn_time --------------------------------------------------------
@@ -2950,6 +3287,44 @@ def main() -> int:
     # the same at the hybrid prefill's shape (d = 80)
     hyb_timing = attn_time(hq_, hk_, hv_, variant=hyb_variant)
     del hq_, hk_, hv_
+    # head dim 64 on the Hopper kernel: internvl2-1b's prefill (GQA 14:2
+    # over 256 patches + 4096 tokens, causal); whisper-tiny's encoder (MHA
+    # 6:6 over 1500 frames, no mask: q and K/V padded to 1536, the keys
+    # bounded by kv_len) and its cross-attention (4096 tokens over the
+    # 1500 frames); each held to the plain version, then timed
+    vcfg, acfg = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    frames = acfg.n_frontend_tokens
+    padded = -(-frames // flash.SEQ_MULTIPLE) * flash.SEQ_MULTIPLE
+    enc_q = attn_case(LM_BATCH, acfg.n_heads, acfg.n_kv_heads, padded,
+                      acfg.head_dim, torch.bfloat16)
+    d64_shapes = {
+        "vlm_prefill": (attn_case(
+            LM_BATCH, vcfg.n_heads, vcfg.n_kv_heads,
+            vcfg.n_frontend_tokens + LM_SEQ, vcfg.head_dim, torch.bfloat16),
+            True, None, None),
+        "whisper_encoder": (enc_q, False, frames, frames),
+        "whisper_cross": ([torch.randn(
+            (LM_BATCH, acfg.n_heads, LM_SEQ, acfg.head_dim), generator=gen,
+            device="cuda").bfloat16(), *enc_q[1:]], False, frames, None)}
+    d64_timing = {}
+    for shape_name, ((q_, k_, v_), causal, kv_len, q_len) in \
+            d64_shapes.items():
+        got = flash.flash_attention_cuda(q_, k_, v_, causal=causal,
+                                         kv_len=kv_len)
+        torch.cuda.synchronize()
+        ok, err, share = attn_within(got, q_, k_, v_, causal=causal,
+                                     kv_len=kv_len)
+        check(ok, f"flash kernel at {shape_name} (q {tuple(q_.shape)}, k/v "
+              f"{tuple(k_.shape)}, kv_len {kv_len}) != plain version "
+              f"(max_abs_err={err}, share of tolerance {share})")
+        d64_timing[shape_name] = attn_time(
+            q_, k_, v_, variant="wgmma_bf16", causal=causal, kv_len=kv_len,
+            q_len=q_len, name=shape_name)
+        d64_timing[shape_name].update(
+            max_abs_err=err, share_of_tolerance=share,
+            shape=f"q {tuple(q_.shape)}, k/v {tuple(k_.shape)}"
+            + (f", kv_len {kv_len}" if kv_len else ", causal"))
+    del got, q_, k_, v_, d64_shapes, enc_q
     # the float32 kernel, which only the check paths launch, at glm4-9b's
     # heads and 2048 tokens: its output there is held to the plain
     # version, and SDPA's float32 result to the same contract
@@ -3052,98 +3427,8 @@ def main() -> int:
     del model, prof
     torch.cuda.empty_cache()
 
-    # 22. prefill_check ---------------------------------------------------
-    t_phase = time.perf_counter()
-    check_cfg = dataclasses.replace(lm_cfg, n_layers=2, attn_impl="pallas")
-    model = init_params(check_cfg, generator=torch.Generator(
-        device="cuda").manual_seed(1), device="cuda")
-    tokens = rng.integers(0, check_cfg.vocab_size, size=(1, 256))
-    step2 = make_prefill_step(check_cfg)
-    reset()
-    card = step2(model, {"tokens": tokens}).float().cpu()
-    card_f32 = float32_logits(model, check_cfg, tokens)
-    card_launches = flash.launches
-    check_by_variant = dict(flash.launches_by_variant)
-    check(card_launches == 2 * check_cfg.n_layers
-          and check_by_variant["wgmma_bf16"] == check_cfg.n_layers
-          and check_by_variant["cuda_core_f32"] == check_cfg.n_layers,
-          f"prefill_check: {card_launches} flash launches on the card "
-          f"({check_by_variant}), want {check_cfg.n_layers} a run: the bf16 "
-          "run on the Hopper kernel, the float32 one on the CUDA-core one")
-    # a ragged length through xla_chunked's blockwise path (1000 x 1000
-    # pairs > 512^2), float32 activations: padded to 1024 on the card
-    ragged_cfg = dataclasses.replace(check_cfg, attn_impl="xla_chunked")
-    ragged_tokens = rng.integers(0, check_cfg.vocab_size, size=(1, 1000))
-    before = flash.launches_by_variant["cuda_core_f32"]
-    card_ragged = float32_logits(model, ragged_cfg, ragged_tokens)
-    ragged_launches = flash.launches_by_variant["cuda_core_f32"] - before
-    check(ragged_launches == check_cfg.n_layers,
-          f"prefill_check (1000 tokens, xla_chunked): {ragged_launches} "
-          f"float32 flash launches, want {check_cfg.n_layers}")
-    card_total = flash.launches
-    model.to("cpu")
-    t_cpu = time.perf_counter()
-    on_cpu = step2(model, {"tokens": tokens}).float()
-    cpu_f32 = float32_logits(model, check_cfg, tokens)
-    cpu_ragged = float32_logits(model, ragged_cfg, ragged_tokens)
-    cpu_seconds = time.perf_counter() - t_cpu
-    check(flash.launches == card_total,
-          "prefill_check: the CPU run launched the flash kernel")
-    ragged_logit_err = float((card_ragged - cpu_ragged).abs().max())
-    check(card_ragged.shape == (1, 1000, check_cfg.vocab_size)
-          and bool(torch.isfinite(card_ragged).all())
-          and bool(((card_ragged - cpu_ragged).abs()
-                    <= ATTN_F32_TOL + ATTN_F32_TOL * cpu_ragged.abs()).all()),
-          f"prefill_check (1000 tokens, xla_chunked): float32 logits on the "
-          f"card differ from the CPU's beyond {ATTN_F32_TOL} (max_abs_err="
-          f"{ragged_logit_err})")
-    check(bool(torch.isfinite(card).all()), "prefill_check: card logits "
-          "not finite")
-    # float32 activations: the kernel's path against the plain one
-    f32_err = float((card_f32 - cpu_f32).abs().max())
-    check(bool(((card_f32 - cpu_f32).abs()
-                <= ATTN_F32_TOL + ATTN_F32_TOL * cpu_f32.abs()).all()),
-          f"prefill_check: float32 logits on the card differ from the "
-          f"CPU's beyond {ATTN_F32_TOL} (max_abs_err={f32_err})")
-    # bf16, the prefill step itself: each side against the float32 logits
-    cpu_err = float((on_cpu - cpu_f32).abs().max())
-    card_err = float((card - cpu_f32).abs().max())
-    logit_err = float((card - on_cpu).abs().max())
-    agree, differ, _ = argmax_agreement(card, on_cpu)
-    card_vs_f32, _, gap_f32 = argmax_agreement(card, cpu_f32)
-    ties_ok = bool((gap_f32[differ].abs() <= 2 * cpu_err).all()) \
-        if bool(differ.any()) else True
-    check(logit_err <= 2 * cpu_err and card_err <= 1.25 * cpu_err
-          and ties_ok,
-          f"prefill_check: bf16 logits on the card differ from the CPU's "
-          f"by {logit_err} (bound {2 * cpu_err}: twice the CPU's own bf16 "
-          f"error {cpu_err}); the card's error {card_err} (bound "
-          f"{1.25 * cpu_err}); argmax agreement {agree}, near ties "
-          f"{ties_ok}")
-    emit("prefill_check", arch=LM_ARCH, n_layers=check_cfg.n_layers,
-         tokens=list(tokens.shape), attn_impl=check_cfg.attn_impl,
-         flash_launches=card_launches,
-         flash_launches_by_variant=check_by_variant,
-         f32_logits_max_abs_err=f32_err,
-         f32_tolerance={"abs": ATTN_F32_TOL, "rel": ATTN_F32_TOL},
-         logits_max_abs_err=logit_err,
-         tolerance={"abs": 2 * cpu_err,
-                    "rule": "twice the CPU's bf16 error against its "
-                            "float32 logits"},
-         bf16_err_vs_f32={"card": card_err, "cpu": cpu_err,
-                          "card_bound": 1.25 * cpu_err},
-         argmax_agreement=agree,
-         argmax_agreement_vs_f32={
-             "card": card_vs_f32,
-             "cpu": argmax_agreement(on_cpu, cpu_f32)[0]},
-         max_argmax_tie_gap_f32=float(gap_f32[differ].abs().max())
-         if bool(differ.any()) else 0.0,
-         ragged={"tokens": list(ragged_tokens.shape),
-                 "attn_impl": ragged_cfg.attn_impl,
-                 "flash_launches_cuda_core_f32": ragged_launches,
-                 "f32_logits_max_abs_err": ragged_logit_err},
-         cpu_seconds=cpu_seconds, seconds=time.perf_counter() - t_phase)
-    del model, card, on_cpu, card_f32, cpu_f32, card_ragged, cpu_ragged
+    # 22. prefill_check -------------------------------------------------
+    lm_check = prefill_check("prefill_check", LM_ARCH, 1, rng)
 
     # 23. decode ----------------------------------------------------------
     # serve.generate at full width and depth: the prompt token by token
@@ -3433,7 +3718,7 @@ def main() -> int:
     hrun, hyb_decode_counts = serve_phase("hybrid_decode", HYBRID_ARCH)
     hmodel, hcfg = hrun.model, hrun.cfg
     del hrun
-    hyb_launches = prefill_phase(
+    hyb_prefill = prefill_phase(
         "hybrid_prefill", hmodel, hcfg, rng, variant=hyb_variant,
         labels=[(ssm_lib, "chunked_decay_attention", "ssd_scan")])
     long_phase(hmodel, hcfg)
@@ -3444,14 +3729,36 @@ def main() -> int:
     srun, ssm_decode_counts = serve_phase("ssm_decode", SSM_ARCH)
     smodel, scfg = srun.model, srun.cfg
     del srun
-    ssm_launches = prefill_phase(
+    ssm_prefill = prefill_phase(
         "ssm_prefill", smodel, scfg, rng, variant=None,
         labels=[(ssm_lib, "slstm_scan", "slstm_scan"),
                 (ssm_lib, "chunked_decay_attention", "ssd_scan")])
     del smodel
     torch.cuda.empty_cache()
 
-    # 36. kernels ---------------------------------------------------------
+    # 36. vlm_check, 37. vlm_decode, 38. vlm_prefill -----------------------
+    vlm_check = prefill_check("vlm_check", VLM_ARCH, 10, rng)
+    vrun, vlm_decode_counts = serve_phase("vlm_decode", VLM_ARCH)
+    vmodel, vcfg = vrun.model, vrun.cfg
+    del vrun
+    vlm_prefill = prefill_phase("vlm_prefill", vmodel, vcfg, rng,
+                                variant="wgmma_bf16", labels=[])
+    del vmodel
+    torch.cuda.empty_cache()
+
+    # 39. audio_check, 40. audio_decode, 41. audio_prefill -----------------
+    audio_check = prefill_check("audio_check", AUDIO_ARCH, 11, rng)
+    arun, audio_decode_counts = serve_phase("audio_decode", AUDIO_ARCH)
+    amodel, acfg = arun.model, arun.cfg
+    del arun
+    audio_prefill = prefill_phase(
+        "audio_prefill", amodel, acfg, rng, variant="wgmma_bf16",
+        labels=[(model_lib.DecoderLM, "encode_audio", "audio_encoder"),
+                (model_lib.CrossBlock, "forward", "cross_attention")])
+    del amodel
+    torch.cuda.empty_cache()
+
+    # 42. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
         t = forest_timing[binned]
@@ -3547,32 +3854,66 @@ def main() -> int:
                 "max_abs_err": hyb_slice_err, **hyb_timing,
                 "registers": wgmma_regs[f"d{hyb_cfg.head_dim}"],
                 "deterministic": repeats["flash_attention_d80"],
-                "launches_by_path": {"hybrid_prefill": hyb_launches}},
+                "launches_by_path": {
+                    "hybrid_prefill": hyb_prefill["launches"]}},
+            **{f"wgmma_bf16_d64_{shape_name}": {
+                **t, "registers": wgmma_regs["d64"],
+                "launches_by_path": (
+                    {"vlm_prefill": vlm_prefill["launches"]}
+                    if shape_name == "vlm_prefill" else
+                    {"audio_prefill": audio_prefill["by_label"][
+                        "audio_encoder"],
+                     "audio_decode": audio_decode_counts[-1]}
+                    if shape_name == "whisper_encoder" else
+                    {"audio_prefill": audio_prefill["by_label"][
+                        "cross_attention"]})}
+               for shape_name, t in d64_timing.items()},
             f"{f32_variant}_d{lm_cfg.head_dim}": {
                 "shape": "q (1, 32, 2048, 128), k/v (1, 2, 2048, 128)",
                 **f32_timing,
                 "on_main_path": False,
                 "launches_by_path": {
-                    "prefill_check": check_by_variant[f32_variant],
-                    "prefill_check/ragged": ragged_launches,
+                    "prefill_check": lm_check["flash_launches_f32"][
+                        f32_variant],
+                    "prefill_check/ragged": lm_check["ragged"][
+                        "flash_launches"][f32_variant],
                     "hybrid_check": hyb_check["flash_launches_f32"][
+                        f32_variant],
+                    "vlm_check": vlm_check["flash_launches_f32"][
+                        f32_variant]
+                    + vlm_check["ragged"]["flash_launches"][f32_variant],
+                    "audio_check": audio_check["flash_launches_f32"][
                         f32_variant]}}},
         "sass_counts": flash_sass,
-        "launches": lm_launches + moe_launches + hyb_launches
-        + ssm_launches,
+        "launches": lm_launches + moe_launches + sum(
+            p["launches"] for p in (hyb_prefill, ssm_prefill, vlm_prefill,
+                                    audio_prefill))
+        + audio_decode_counts[-1],
         "launches_by_path": {"prefill": lm_launches,
                              "moe_prefill": moe_launches,
-                             "hybrid_prefill": hyb_launches,
-                             "ssm_prefill": ssm_launches,
+                             "hybrid_prefill": hyb_prefill["launches"],
+                             "ssm_prefill": ssm_prefill["launches"],
+                             "vlm_prefill": vlm_prefill["launches"],
+                             "audio_prefill": audio_prefill["launches"],
                              "decode": decode_counts[-1],
                              "moe_decode": moe_decode_counts[-1],
                              "hybrid_decode": hyb_decode_counts[-1],
-                             "ssm_decode": ssm_decode_counts[-1]},
-        "launches_per_request": {"prefill": lm_cfg.n_layers,
-                                 "moe_prefill": mcfg.n_layers,
-                                 "hybrid_prefill": hcfg.n_layers
-                                 // hcfg.attn_every,
-                                 "ssm_prefill": 0},
+                             "ssm_decode": ssm_decode_counts[-1],
+                             "vlm_decode": vlm_decode_counts[-1],
+                             "audio_decode": audio_decode_counts[-1]},
+        # the timed requests' launches over their number; a decode phase
+        # is one generate call
+        "launches_per_request": {
+            "prefill": lm_launches / LM_REQUESTS,
+            "moe_prefill": moe_launches / LM_REQUESTS,
+            "hybrid_prefill": hyb_prefill["per_request"],
+            "ssm_prefill": ssm_prefill["per_request"],
+            "vlm_prefill": vlm_prefill["per_request"],
+            "audio_prefill": audio_prefill["per_request"],
+            "audio_prefill_by_label": {
+                k: n / LM_REQUESTS
+                for k, n in audio_prefill["by_label"].items()},
+            "audio_decode": audio_decode_counts[-1]},
         "max_abs_err": slice_err,
         "ms": attn_timing["ms"],
         "plain_ms": attn_timing["plain_ms"],

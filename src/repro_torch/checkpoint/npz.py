@@ -6,16 +6,19 @@ layer axes first, weights are (d_in, d_out).  The port's module names
 follow the same paths (``layers.3.attn.wq.w``), so a file written by
 either package loads into the other.  The stacks: ``layers`` (one axis;
 a moe model's router and experts are ``layers/moe/router/w``,
-``layers/moe/{wi,wg,wo}`` and ``layers/moe/shared/...``), ``slstm`` (one
-axis, the group), ``mlstm`` and ``mamba`` (two: the group, then the layer
-in it) and ``shared_attn`` (none: one block).  bf16 arrays, which numpy
+``layers/moe/{wi,wg,wo}`` and ``layers/moe/shared/...``), the audio
+family's ``enc_layers``, ``dec_layers`` and ``cross_layers`` (one axis
+each), ``slstm`` (one axis, the group), ``mlstm`` and ``mamba`` (two: the
+group, then the layer in it); ``shared_attn``, ``patch_proj``,
+``frame_proj`` and ``ln_enc`` are not stacked.  bf16 arrays, which numpy
 stores as raw 2-byte voids, are read back as bf16.  Writes are atomic
 (tmp + rename).
 
 A decode state crosses the same way (:func:`decode_state_from_numpy`,
-:func:`decode_state_to_numpy`): ``kv/k``, ``kv/v``, ``mamba``, ``mlstm``
-and the sLSTM tuple's ``slstm/#0`` ... ``slstm/#3`` (the JAX package's
-key for a tuple index), leading axes as the JAX package stacks them.
+:func:`decode_state_to_numpy`): ``kv/k``, ``kv/v``, ``cross_k``,
+``cross_v``, ``mamba``, ``mlstm`` and the sLSTM tuple's ``slstm/#0`` ...
+``slstm/#3`` (the JAX package's key for a tuple index), leading axes as
+the JAX package stacks them.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from ..models.model import DecoderLM, init_decode_state, init_params
 
 _SEP = "/"
 # the stacked axes in front of each stack's parameters
-_STACKED = {"layers": 1, "slstm": 1, "mlstm": 2, "mamba": 2}
+_STACKED = {"layers": 1, "enc_layers": 1, "dec_layers": 1,
+            "cross_layers": 1, "slstm": 1, "mlstm": 2, "mamba": 2}
 
 
 def flat_key(name: str) -> tuple[str, tuple[int, ...] | None]:
@@ -175,7 +179,8 @@ def decode_state_from_numpy(cfg, flat, *, device="cuda") -> dict:
     """The port's decode state from the JAX package's flattened one.
 
     ``flat`` maps the state's flat paths (``kv/k`` and ``kv/v``, with
-    ``mamba`` in the hybrid family; ``mlstm`` and ``slstm/#0`` ...
+    ``mamba`` in the hybrid family and ``cross_k`` and ``cross_v`` in the
+    audio family; ``mlstm`` and ``slstm/#0`` ...
     ``slstm/#3`` in the ssm family) to arrays shaped as
     :func:`init_decode_state` lays them out, kept in their dtype (bf16
     caches and float32 recurrent states in the JAX package).  Raises
@@ -190,7 +195,9 @@ def decode_state_from_numpy(cfg, flat, *, device="cuda") -> dict:
     lead = 2 if cfg.family == "ssm" else 1          # the batch's axis
     batch = flat[anchor].shape[lead]
     length = 0 if cfg.family == "ssm" else flat[anchor].shape[2]
-    state = init_decode_state(cfg, batch, length, device="meta")
+    frames = flat["cross_k"].shape[2] if "cross_k" in flat else None
+    state = init_decode_state(cfg, batch, length, device="meta",
+                              frames=frames)
     want = flat_state(state)
     if set(flat) != set(want):
         raise KeyError(f"{cfg.name}: decode state keys {sorted(flat)}, "

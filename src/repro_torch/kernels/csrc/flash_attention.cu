@@ -6,13 +6,17 @@
 // h / g (g = q_heads / kv_heads), positions counted from 0 on both sides:
 //
 //   s_ij = (q_i . k_j) * scale,   scale = 1/sqrt(d) rounded to float32,
-//   kept where (j <= i if causal) and (j > i - window if window > 0),
+//   kept where j < kv_len and (j <= i if causal) and (j > i - window if
+//   window > 0),
 //
 // and o_i = sum_j softmax_j(s_i) v_j, by the online softmax over tiles of
 // keys with float32 m (running max, NEG_INF = -1e30 at the start), l (sum
 // of exponentials) and acc (sum of p v).  A row that keeps no key has
-// l == 0 and gets 0.  Both kernels skip KV tiles that lie wholly outside
-// the causal / window band.  That is exact: such a tile has s = NEG_INF
+// l == 0 and gets 0.  kv_len (at most sk) bounds the real keys of K/V
+// padded to a multiple of 128: whisper's 1500 frames run as 1536, the
+// counterpart of the JAX package's _flash_xla, which takes any length.
+// Both kernels skip KV tiles that lie wholly outside the causal / window
+// band or past kv_len.  That is exact: such a tile has s = NEG_INF
 // everywhere, so m_new = m_prev, alpha = exp(0) = 1 and p = 0, and m, l
 // and acc are unchanged in the JAX kernel too.  Both take query tiles
 // heaviest first (the longest causal bands; the Hopper kernel within a
@@ -75,8 +79,10 @@
 //   a tile's descriptor and an immediate offset, so the compiler keeps no
 //   descriptor a k16 step live: with them hoisted, ptxas ran out of
 //   registers and serialised the wgmmas.
-// - Only tiles that straddle the diagonal or the window's lower edge for
-//   a warpgroup's 64 rows compute the mask; interior tiles run unmasked.
+// - Only tiles that straddle the diagonal, the window's lower edge or
+//   kv_len for a warpgroup's 64 rows compute the mask; interior tiles run
+//   unmasked.  The key-length bound is folded into the row's upper bound
+//   outside the loop over the tile's 64 elements, so the loop is the same.
 // - GQA reads KV head h / g through its row coordinate in the K/V tensor
 //   maps; no K/V is repeated.  A block takes one query head: two heads of
 //   one group do not share a K/V tile (each K/V tile is read from L2 by
@@ -173,8 +179,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int q_heads,
-             int kv_heads, int sq, int sk, float scale, int causal,
-             int window) {
+             int kv_heads, int sq, int sk, int kv_len, float scale,
+             int causal, int window) {
   using Tl = Tile<D>;
   constexpr int kLd = Tl::kLd;
   constexpr int kLdP = Tl::kLdP;
@@ -209,10 +215,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
   }
 
-  // The band of KV tiles that hold a kept key for some row of this tile.
+  // The band of KV tiles that hold a kept key for some row of this tile:
+  // none at or past kv_len.
   int k_begin = 0;
-  int k_end = sk;
-  if (causal) k_end = min(sk, q0 + kBlockQ);
+  int k_end = kv_len;
+  if (causal) k_end = min(kv_len, q0 + kBlockQ);
   if (window > 0) k_begin = max(0, q0 - window + 1) / kBlockK * kBlockK;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
@@ -253,7 +260,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        keep[j] = (!causal || kpos <= qpos) &&
+        keep[j] = kpos < kv_len && (!causal || kpos <= qpos) &&
                   (window <= 0 || kpos > qpos - window);
         s[i][j] = keep[j] ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -325,7 +332,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int batch, int q_heads, int kv_heads, int sq, int sk,
-                   float scale, int causal, int window, cudaStream_t stream) {
+                   int kv_len, float scale, int causal, int window,
+                   cudaStream_t stream) {
   constexpr size_t smem = Tile<D>::kSmemBytes;
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -335,7 +343,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), q_heads, kv_heads,
-      sq, sk, scale, causal, window);
+      sq, sk, kv_len, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -704,21 +712,26 @@ struct Softmax {
   // Scores of the tile at key k0 -> float32 p, in place.
   __device__ __forceinline__ void update(float (&s)[64], const Rows& rows,
                                          int k0, float scale_log2,
-                                         int causal, int window) {
-    // The mask, only on tiles that straddle the diagonal or the
-    // window's lower edge for some row of this warpgroup: row r keeps
-    // the keys in [r - window + 1, r] (causal, window), as offsets from
-    // the thread's first column in the tile.
+                                         int causal, int window,
+                                         int kv_len) {
+    // The mask, only on tiles that straddle the diagonal, the window's
+    // lower edge or kv_len for some row of this warpgroup: row r keeps
+    // the keys in [r - window + 1, min(r, kv_len - 1)] (causal, window),
+    // as offsets from the thread's first column in the tile: up to hi0 in
+    // row r0, hi8 in row r0 + 8.
     if ((causal && k0 + kBlockN - 1 > rows.q_lo)
-        || (window > 0 && k0 <= rows.q_lo + 63 - window)) {
+        || (window > 0 && k0 <= rows.q_lo + 63 - window)
+        || k0 + kBlockN > kv_len) {
       const int base = k0 + rows.c0;
-      const int hi0 = causal ? rows.r0 - base : kBlockN;
+      const int last = kv_len - 1 - base;
+      const int hi0 = causal ? min(rows.r0 - base, last) : last;
+      const int hi8 = causal ? min(rows.r0 + 8 - base, last) : last;
       const int lo0 = window > 0 ? rows.r0 - window + 1 - base : -kBlockN;
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
         const int col = 8 * (i >> 2) + (i & 1);
         const int row8 = 8 * ((i >> 1) & 1);
-        if (col > hi0 + row8 || col < lo0 + row8) s[i] = -INFINITY;
+        if (col > (row8 ? hi8 : hi0) || col < lo0 + row8) s[i] = -INFINITY;
       }
     }
     // Row max and row sum over four independent partials a row, so that
@@ -789,7 +802,8 @@ struct Work {
 
 __device__ __forceinline__ Work work_item(int item, int heads, int group,
                                           int q_heads, int kv_heads, int sq,
-                                          int sk, int causal, int window) {
+                                          int sk, int kv_len, int causal,
+                                          int window) {
   Work w;
   const int n_q = sq / kBlockM;
   const int first = item / (group * n_q) * group;   // the group's first head
@@ -799,12 +813,15 @@ __device__ __forceinline__ Work work_item(int item, int heads, int group,
   w.q0 = (n_q - 1 - rest / in_group) * kBlockM;
   const int b = w.bh / q_heads;
   const int kvh = b * kv_heads + (w.bh - b * q_heads) / (q_heads / kv_heads);
-  // The band of K/V tiles that hold a kept key for some row of the tile.
-  int k_end = sk;
+  // The band of K/V tiles that hold a kept key for some row of the tile:
+  // none at or past kv_len.  A band that keeps no key (a window that
+  // starts past kv_len) still runs its first tile, all of it masked, so
+  // that its rows get 0.
+  int k_end = kv_len;
   w.k_begin = 0;
-  if (causal) k_end = min(sk, w.q0 + kBlockM);
+  if (causal) k_end = min(kv_len, w.q0 + kBlockM);
   if (window > 0) w.k_begin = max(0, w.q0 - window + 1) / kBlockN * kBlockN;
-  w.n_tiles = (k_end - w.k_begin + kBlockN - 1) / kBlockN;
+  w.n_tiles = max(1, (k_end - w.k_begin + kBlockN - 1) / kBlockN);
   w.kv_row = kvh * sk + w.k_begin;
   return w;
 }
@@ -822,7 +839,8 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ o, int* __restrict__ next_item,
                    int heads, int group, int q_heads, int kv_heads, int sq,
-                   int sk, float scale_log2, int causal, int window) {
+                   int sk, int kv_len, float scale_log2, int causal,
+                   int window) {
   using L = Layout<D>;
   constexpr int kSw = L::kSwizzle;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -868,7 +886,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
           break;
         }
         const Work w = work_item(item, heads, group, q_heads, kv_heads, sq,
-                                 sk, causal, window);
+                                 sk, kv_len, causal, window);
         bar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
         for (int c = 0; c < L::kChunks; ++c)
@@ -929,7 +947,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       const int item = ld_shared(s_item);
       if (item >= n_items) break;
       const Work w = work_item(item, heads, group, q_heads, kv_heads, sq, sk,
-                               causal, window);
+                               kv_len, causal, window);
       Rows rows;
       rows.q_lo = w.q0 + 64 * wg;                      // this warpgroup's
       rows.r0 = rows.q_lo + 16 * warp + (lane >> 2);   // rows r0, r0 + 8
@@ -945,7 +963,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       named_arrive(other_turn);
       wgmma_wait<0>();
       fence_regs(s);
-      sm.update(s, rows, w.k_begin, scale_log2, causal, window);
+      sm.update(s, rows, w.k_begin, scale_log2, causal, window, kv_len);
       pack_p(s, p);
 
       // Tile t: S_t = Q K_t^T and P_{t-1} V_{t-1} in one turn; the
@@ -965,7 +983,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<1>();                   // S_t has landed
         fence_regs(s);
         sm.update(s, rows, w.k_begin + t * kBlockN, scale_log2, causal,
-                  window);
+                  window, kv_len);
         wgmma_wait<0>();                   // P_{t-1} V_{t-1} has landed
         fence_regs(acc);
         bar_arrive(bars + 8 * (kStages + prev));   // tile t-1 may refill
@@ -1064,7 +1082,8 @@ CUresult make_map(CUtensorMap* map, const void* ptr, uint64_t rows,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            int* next_item, int batch, int q_heads, int kv_heads, int sq,
-           int sk, float scale, int causal, int window, cudaStream_t stream) {
+           int sk, int kv_len, float scale, int causal, int window,
+           cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   const uint64_t kv_rows = static_cast<uint64_t>(batch) * kv_heads * sk;
   CUresult r = make_map<D>(&tq, q, static_cast<uint64_t>(batch) * q_heads * sq,
@@ -1094,7 +1113,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const int group = max(1, blocks / n_q);
   flash_kernel_wgmma<D><<<blocks, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), next_item, heads, group,
-      q_heads, kv_heads, sq, sk, scale * 1.4426950408889634f, causal, window);
+      q_heads, kv_heads, sq, sk, kv_len, scale * 1.4426950408889634f, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1105,29 +1125,32 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // q (batch, q_heads, sq, d), k and v (batch, kv_heads, sk, d), o like q:
 // contiguous and 16-byte aligned.  q_heads % kv_heads == 0; sq and sk
 // multiples of 128 (the JAX kernel's block); a causal or window mask only
-// with sq == sk.  Each returns cudaGetLastError() after its launch, and
-// cudaErrorInvalidValue, without a launch, for a head dim it was not built
-// for; the wrapper (kernels/flash_attention.py) picks the entry by dtype.
+// with sq == sk.  Only the first kv_len keys (1 <= kv_len <= sk) are
+// attended to: the rest is padding, never loaded where a whole tile of it
+// lies past kv_len, masked where a tile straddles it.  Each returns
+// cudaGetLastError() after its launch, and cudaErrorInvalidValue, without
+// a launch, for a head dim it was not built for; the wrapper
+// (kernels/flash_attention.py) picks the entry by dtype.
 
 // The CUDA-core kernel: float32 at d in {32, 64, 80, 128}.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int batch, int q_heads, int kv_heads,
-                               int sq, int sk, int d, float scale,
+                               int sq, int sk, int kv_len, int d, float scale,
                                int causal, int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch<32>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
-                        causal, window, s);
+      return launch<32>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, kv_len,
+                        scale, causal, window, s);
     case 64:
-      return launch<64>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
-                        causal, window, s);
+      return launch<64>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, kv_len,
+                        scale, causal, window, s);
     case 80:
-      return launch<80>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
-                        causal, window, s);
+      return launch<80>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, kv_len,
+                        scale, causal, window, s);
     case 128:
-      return launch<128>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, scale,
-                         causal, window, s);
+      return launch<128>(q, k, v, o, batch, q_heads, kv_heads, sq, sk, kv_len,
+                         scale, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1140,22 +1163,27 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 extern "C" int flash_attention_wgmma(const void* q, const void* k,
                                      const void* v, void* o, int* next_item,
                                      int batch, int q_heads, int kv_heads,
-                                     int sq, int sk, int d, float scale,
-                                     int causal, int window, void* stream) {
+                                     int sq, int sk, int kv_len, int d,
+                                     float scale, int causal, int window,
+                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
       return hopper::launch<32>(q, k, v, o, next_item, batch, q_heads,
-                                kv_heads, sq, sk, scale, causal, window, s);
+                                kv_heads, sq, sk, kv_len, scale, causal,
+                                window, s);
     case 64:
       return hopper::launch<64>(q, k, v, o, next_item, batch, q_heads,
-                                kv_heads, sq, sk, scale, causal, window, s);
+                                kv_heads, sq, sk, kv_len, scale, causal,
+                                window, s);
     case 80:
       return hopper::launch<80>(q, k, v, o, next_item, batch, q_heads,
-                                kv_heads, sq, sk, scale, causal, window, s);
+                                kv_heads, sq, sk, kv_len, scale, causal,
+                                window, s);
     case 128:
       return hopper::launch<128>(q, k, v, o, next_item, batch, q_heads,
-                                 kv_heads, sq, sk, scale, causal, window, s);
+                                 kv_heads, sq, sk, kv_len, scale, causal,
+                                 window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -62,7 +62,7 @@ def _kernel(name: str):
                 ("wgmma_bf16", "flash_attention_wgmma", 5),
                 ("cuda_core_f32", "flash_attention", 4)):
             fn = getattr(lib, entry)
-            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 7
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -70,7 +70,7 @@ def _kernel(name: str):
     return _fns[name]
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, kv_len):
     name = "flash_attention_cuda"
     for t, arg in ((q, "q"), (k, "k"), (v, "v")):
         if t.device.type != "cuda":
@@ -110,11 +110,14 @@ def _check(q, k, v, window):
                          f"{SEQ_MULTIPLE}, got sq={sq}, sk={sk}")
     if window < 0:
         raise ValueError(f"{name}: window must be >= 0, got {window}")
+    if kv_len is not None and not 1 <= kv_len <= sk:
+        raise ValueError(f"{name}: kv_len must lie in [1, sk={sk}], got "
+                         f"{kv_len}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         kv_len: int | None = None) -> torch.Tensor:
     """Blockwise attention in one launch of the kernel :func:`variant`
     picks.
 
@@ -123,13 +126,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounding of P to bf16 (``ref.attention_rounding_bound``) and of the
     output.  q (batch, q_heads, sq, d), k and v (batch, kv_heads, sk, d),
     contiguous on one CUDA device, all float32 or all bfloat16; ``d`` in
-    :data:`HEAD_DIMS`; ``sq`` and ``sk`` multiples of 128.  Returns
-    (batch, q_heads, sq, d) in q's dtype.
+    :data:`HEAD_DIMS`; ``sq`` and ``sk`` multiples of 128; ``kv_len`` (1
+    to ``sk``, default ``sk``) the keys attended to, the rest padding.
+    Returns (batch, q_heads, sq, d) in q's dtype.
     """
     global launches
-    _check(q, k, v, window)
+    _check(q, k, v, window, kv_len)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    kv_len = sk if kv_len is None else kv_len
     check_attention_lengths(sq, sk, causal=causal, window=window)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -142,8 +147,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # on return: the allocator reuses it only behind this stream's work)
         next_item = torch.zeros(1, dtype=torch.int32, device=q.device)
         ptrs += (next_item.data_ptr(),)
-    dims = (b, hq, hkv, sq, sk, d, 1.0 / d ** 0.5, int(causal), int(window),
-            stream)
+    dims = (b, hq, hkv, sq, sk, kv_len, d, 1.0 / d ** 0.5, int(causal),
+            int(window), stream)
     with torch.cuda.device(q.device):
         err = _kernel(name)(*ptrs, *dims)
     if err < 0:

@@ -296,9 +296,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The kernel takes lengths that are multiples of 128, as the JAX kernel
     does.  With ``ragged`` (the blockwise path of ``xla_chunked``, which
-    in the JAX package takes any length) a causal call of another length
-    runs the kernel on inputs padded to the next multiple
-    (:func:`pad_ragged`); a ragged call with no mask raises on the card.
+    in the JAX package takes any length) a call of other lengths runs the
+    kernel on inputs padded to the next multiples, with the padded keys
+    masked by the kernel's key-length bound (:func:`pad_ragged`).
     """
     if resolve(backend, q.device) == "cuda":
         kernel = flash_kernel.flash_attention_cuda
@@ -310,29 +310,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def pad_ragged(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool, window: int) -> torch.Tensor:
-    """``fn(q, k, v, causal=, window=)`` at any causal length, through
+    """``fn(q, k, v, causal=, window=, kv_len=)`` at any lengths, through
     lengths that are multiples of the kernel's 128
     (``flash_attention.SEQ_MULTIPLE``).
 
     Lengths that are multiples already go to ``fn`` as they are.
-    Otherwise q, k and v are padded with zeros at the tail of the sequence
-    to the next multiple, and the output is sliced back.  That is exact
-    under a causal mask over equal lengths: a padded key comes after every
-    real query, so the mask (and a window with it) hides it, and the
-    padded query rows are thrown away.  With no mask the padded keys
-    would be attended to, so a ragged length raises: the kernel would
-    need a bound on the key length, which it does not take.
+    Otherwise q is padded with zeros at the tail of the sequence to the
+    next multiple of its own length, and k and v to the next multiple of
+    theirs (whisper's cross-attention: 4096 queries over 1500 frames, k/v
+    padded to 1536); ``kv_len`` = sk bounds the real keys, and the output
+    is sliced back to sq rows.  That is exact: ``fn`` masks every padded
+    key (under a causal mask over equal lengths the mask hides them too),
+    and the padded query rows are thrown away.
     """
     multiple = flash_kernel.SEQ_MULTIPLE
     sq, sk = q.shape[2], k.shape[2]
     if sq % multiple == 0 and sk % multiple == 0:
         return fn(q, k, v, causal=causal, window=window)
-    if not causal:
-        raise ValueError(
-            f"attention with no mask over ragged lengths (sq={sq}, sk={sk}) "
-            f"is not built on the card: its kernel takes multiples of "
-            f"{multiple} and would need a bound on the key length")
     ref.check_attention_lengths(sq, sk, causal=causal, window=window)
-    pad = -sq % multiple
-    padded = [torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v)]
-    return fn(*padded, causal=causal, window=window)[:, :, :sq]
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, -t.shape[2] % multiple))
+    return fn(pad(q), pad(k), pad(v), causal=causal, window=window,
+              kv_len=sk)[:, :, :sq]

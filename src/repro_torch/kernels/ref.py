@@ -481,7 +481,8 @@ def hist_rounding_bound(bins: torch.Tensor, node_per_level: torch.Tensor,
 
 def attention_rounding_bound(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
-                             window: int = 0) -> torch.Tensor:
+                             window: int = 0,
+                             kv_len: int | None = None) -> torch.Tensor:
     """How far attention whose P is rounded to bf16 before its product with
     V may lie from the float32 :func:`attention_ref`, element by element.
 
@@ -495,7 +496,8 @@ def attention_rounding_bound(q: torch.Tensor, k: torch.Tensor,
       (batch, q_heads, sq, d) float32, shaped like the output.
     """
     return 2.0 ** -8 * attention_ref(q.float(), k.float(), v.float().abs(),
-                                     causal=causal, window=window)
+                                     causal=causal, window=window,
+                                     kv_len=kv_len)
 
 
 def check_attention_lengths(sq: int, sk: int, *, causal: bool,
@@ -515,7 +517,8 @@ def check_attention_lengths(sq: int, sk: int, *, causal: bool,
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
+                  causal: bool = True, window: int = 0,
+                  kv_len: int | None = None) -> torch.Tensor:
     """Naive float32 attention with GQA and causal / sliding-window masks.
 
     Mirrors the JAX package's ``attention_ref``: query head ``h`` reads KV
@@ -523,10 +526,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     in float32 divided by ``d ** 0.5``, masked keys at -inf, a row with no
     kept key gives 0, the output in q's dtype.  Raises where queries and
     keys differ in length under a mask (:func:`check_attention_lengths`).
+    ``kv_len`` masks the keys from it on, as the card's kernel does on
+    K/V padded to a multiple of 128 (``ops.pad_ragged``).
 
     Args:
       q: (batch, q_heads, sq, d).
       k, v: (batch, kv_heads, sk, d).
+      kv_len: the keys attended to, 1 to sk (default sk).
     """
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
@@ -544,6 +550,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
+    if kv_len is not None:
+        if not 1 <= kv_len <= sk:
+            raise ValueError(f"kv_len must lie in [1, sk={sk}], got {kv_len}")
+        mask &= kpos < kv_len
     p = torch.softmax(s.masked_fill_(~mask, float("-inf")), dim=-1)
     del s
     p = p.masked_fill_(torch.isnan(p), 0.0)

@@ -17,7 +17,9 @@ import torch
 def make_prefill_step(cfg, *, window: int = 0):
     """``prefill_step(model, batch) -> logits`` (B, S, V) in bf16.
 
-    ``batch["tokens"]`` is (B, S) ints; ``model`` a ``DecoderLM`` whose
+    ``batch["tokens"]`` is (B, S) ints, with ``batch["patches"]`` (B, P,
+    D) in the vlm family and ``batch["frames"]`` (B, F, D) in the audio
+    family, passed through to the model; ``model`` a ``DecoderLM`` whose
     parameters ``cfg`` describes.  Runs under ``torch.inference_mode()``.
     """
     def prefill_step(model, batch):

@@ -15,9 +15,15 @@ of the JAX package does:
   ``ops.flash_attention``.  The JAX package runs a pure-JAX online
   softmax there, "identical math to the Pallas kernel" in its own words,
   at any length; the port keeps one blockwise implementation per device
-  and on the card pads a causal call of a length that is not a multiple
-  of 128 to the next one (``ops.pad_ragged``: exact).  ``pallas`` takes
-  multiples of 128 only, as the JAX kernel does.
+  and on the card pads a call of lengths that are not multiples of 128
+  to the next ones, the padded keys masked by the kernel's key-length
+  bound (``ops.pad_ragged``: exact).  ``pallas`` takes multiples of 128
+  only, as the JAX kernel does.
+
+Cross-attention (the audio family's decoder over the encoder's output)
+is the same function with ``kv_x``: keys and values are projected from
+``kv_x``, the naive path's masks read ``kv_positions``, and RoPE is
+skipped under ``use_rope=False``.
 
 Layouts: activations (B, S, D); q (B, S, Hq, Dh) and k/v (B, S, Hkv, Dh)
 out of the projections; the kernel takes (B, H, S, Dh).  Grouped queries
@@ -27,8 +33,7 @@ plain torch, as it is plain ``jnp`` in the JAX package: float32 scores
 and softmax over the whole cache.
 
 Left out: the JAX ``sharding.constrain`` calls, which are no-ops without
-a mesh (the port runs on one card); cross-attention (``kv_x``, the audio
-family).
+a mesh (the port runs on one card).
 """
 
 from __future__ import annotations
@@ -66,12 +71,16 @@ class Attention(nn.Module):
                          window=window)
 
 
-def project_qkv(p: Attention, cfg, x: torch.Tensor):
-    """-> q (B, S, Hq, Dh), k and v (B, S, Hkv, Dh)."""
-    b, s, _ = x.shape
-    q = p.wq(x).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = p.wk(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = p.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+def project_qkv(p: Attention, cfg, x: torch.Tensor,
+                kv_x: torch.Tensor | None = None):
+    """-> q (B, Sq, Hq, Dh) from x, k and v (B, Sk, Hkv, Dh) from ``kv_x``
+    (cross-attention) or x."""
+    b, sq, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
+    sk = kv_x.shape[1]
+    q = p.wq(x).reshape(b, sq, cfg.n_heads, cfg.head_dim)
+    k = p.wk(kv_x).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    v = p.wv(kv_x).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
     if p.q_norm is not None:
         q = p.q_norm(q)
         k = p.k_norm(k)
@@ -85,7 +94,7 @@ def _grouped(q, k, v, hkv: int):
     return q, k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _naive(cfg, q, k, v, positions, *, causal, window):
+def _naive(cfg, q, k, v, positions, kv_positions, *, causal, window):
     """Float32 softmax over every (query, key) pair; masks from the
     positions, masked scores at NEG_INF."""
     b, sq = q.shape[:2]
@@ -93,7 +102,7 @@ def _naive(cfg, q, k, v, positions, *, causal, window):
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
                      kg.float()) / (cfg.head_dim ** 0.5)
     qpos = positions[:, None, None, :, None]
-    kpos = positions[:, None, None, None, :]
+    kpos = kv_positions[:, None, None, None, :]
     mask = torch.ones_like(s, dtype=torch.bool)
     if causal:
         mask &= kpos <= qpos
@@ -105,29 +114,38 @@ def _naive(cfg, q, k, v, positions, *, causal, window):
 
 
 def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
-              *, causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Full-sequence self-attention (prefill).
+              *, causal: bool = True, window: int = 0,
+              kv_x: torch.Tensor | None = None,
+              kv_positions: torch.Tensor | None = None,
+              use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence attention (prefill, encoder, cross-attention).
 
     Args:
-      x: (B, S, D) activations.
-      positions: (B, S) int positions, for RoPE and the naive path's
+      x: (B, Sq, D) the queries' activations.
+      positions: (B, Sq) int positions, for RoPE and the naive path's
         masks.  The blockwise path counts positions from 0, as the JAX
         kernel does; a prefill's positions are ``arange(S)``.
+      kv_x: (B, Sk, D), the keys' and values' activations in
+        cross-attention (default x).
+      kv_positions: (B, Sk) the keys' positions (default ``positions``).
+      use_rope: rotate q and k (cross-attention does not).
 
-    Returns: (B, S, D) in x's dtype.
+    Returns: (B, Sq, D) in x's dtype.
     """
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; the port "
                          f"takes {ATTN_IMPLS}")
     b, sq, _ = x.shape
-    q, k, v = project_qkv(p, cfg, x)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = project_qkv(p, cfg, x, kv_x)
+    kv_positions = positions if kv_positions is None else kv_positions
+    if use_rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, kv_positions, cfg.rope_theta)
 
     naive = cfg.attn_impl == "xla_full" or (
         cfg.attn_impl == "xla_chunked" and sq * k.shape[1] <= 512 * 512)
     if naive:
-        out = _naive(cfg, q, k, v, positions, causal=causal,
+        out = _naive(cfg, q, k, v, positions, kv_positions, causal=causal,
                      window=window).to(x.dtype)
     else:
         heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]

@@ -1,39 +1,49 @@
 """The LM: init, decoder block, backbone, hidden, forward, decode.
 
-A port of the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families of the
-JAX package's ``models/model.py``: the full-sequence forward (prefill)
-and one decode step against a KV cache or a recurrent state.  Parameters
-live in ``nn.Module``s whose names follow the JAX params pytree, so
-``layers.3.attn.wq.w`` here is ``params["layers"]["attn"]["wq"]["w"][3]``
-there (the JAX package stacks the layer axis first for its ``lax.scan``;
-the port keeps one module per layer and runs them in a Python loop).
+A port of every family of the JAX package's ``models/model.py``: the
+full-sequence forward (prefill) and one decode step against a KV cache
+or a recurrent state.  Parameters live in ``nn.Module``s whose names
+follow the JAX params pytree, so ``layers.3.attn.wq.w`` here is
+``params["layers"]["attn"]["wq"]["w"][3]`` there (the JAX package stacks
+the layer axis first for its ``lax.scan``; the port keeps one module per
+layer and runs them in a Python loop).
 The stacks, by family:
 
-  dense | moe   ``layers``: decoder blocks [attn + MLP], or [attn + MoE]
-                (``models/moe.py``), whose router losses sum into ``aux``
+  dense | vlm   ``layers``: decoder blocks [attn + MLP], or [attn + MoE]
+  | moe         (``models/moe.py``), whose router losses sum into ``aux``;
+                the vlm family also ``patch_proj``, which projects the
+                stub vision tower's patch embeddings, put before the text
+                (their rows are trimmed after ``ln_f``)
   ssm (xlstm)   groups of (slstm_every - 1) mLSTM and one sLSTM:
                 ``mlstm.{g}.{i}`` and ``slstm.{g}`` (``models/ssm.py``)
   hybrid        groups of [the shared attention block, then attn_every
   (zamba2)      Mamba2]: ONE ``shared_attn`` decoder block (the Zamba
                 trick: the same parameters at the head of every group)
                 and ``mamba.{g}.{i}``
+  audio         an encoder-decoder: ``frame_proj`` and a sinusoid over the
+  (whisper)     stub frame embeddings, ``enc_layers`` (non-causal decoder
+                blocks with RoPE) and ``ln_enc``; then ``dec_layers``
+                (causal), each followed by a cross-attention block of
+                ``cross_layers`` (``ln``, ``attn``; no RoPE) over the
+                encoder's output
 
 The decode state is the JAX package's pytree, each leading axis as the
 JAX package stacks it, so a JAX state converts 1:1
 (``checkpoint.npz.decode_state_from_numpy``): ``{"kv": {"k", "v"}}``,
-each (n_layers, B, L, Hkv, Dh), in the dense and moe families;
+each (n_layers, B, L, Hkv, Dh), in the dense, vlm and moe families;
 ``{"mlstm", "slstm": (c, n, h, m)}`` in the ssm family; ``{"mamba",
 "kv"}`` in the hybrid family, with one KV cache a group for the shared
-block (n_grp, B, L, H, Dh).  Recurrent states are float32.  A decode step
-updates the state in place.
+block (n_grp, B, L, H, Dh); in the audio family ``{"kv", "cross_k",
+"cross_v"}``, the cross-attention's K/V of the encoded frames (n_layers,
+B, F, Hkv, Dh), filled once at prefill (``launch/serve.py``).  Recurrent
+states are float32.  A decode step updates the state in place.
 
 The config's execution knobs are read at call time: a model built for a
 config runs under any config that differs from it only in those knobs
 (``attn_impl``, the MoE layer's ``moe_groups``, ``moe_dispatch``,
 ``capacity_factor`` and ``router_aux_weight``, ``ssm_chunk`` and
 ``ssm_compute_dtype``, and the JAX compilation knobs, see
-``configs/base.py``).  The vlm and audio families raise
-``NotImplementedError`` naming their ROADMAP item.
+``configs/base.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ import torch
 from torch import nn
 
 from . import layers, ssm
-from .attention import Attention, attention_decode, init_kv_cache
+from .attention import Attention, attention, attention_decode, init_kv_cache
 from .moe import MoE
 from ..kernels.ops import device_of
 
@@ -55,21 +65,12 @@ EXECUTION_FIELDS = ("name", "attn_impl", "attn_chunk", "causal_skip",
                     "capacity_factor", "router_aux_weight",
                     "long_context_window", "ssm_chunk", "ssm_compute_dtype")
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_NOT_PORTED = {
-    "vlm": "ROADMAP queue 1 item 8 (the vlm family)",
-    "audio": "ROADMAP queue 1 item 11 (the audio family)",
-}
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def check_family(cfg) -> None:
-    if cfg.family in FAMILIES:
-        return
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_NOT_PORTED[cfg.family]}")
-    raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 class DecoderBlock(nn.Module):
@@ -110,6 +111,47 @@ class DecoderBlock(nn.Module):
         return self._ffn(cfg, x + h)[0]
 
 
+class CrossBlock(nn.Module):
+    """The audio decoder's cross-attention: ``x + attn(ln(x), kv_x=the
+    encoder's output)``, non-causal and without RoPE."""
+
+    def __init__(self, cfg, *, generator=None, device, dtype):
+        super().__init__()
+        self.ln = layers.RMSNorm(cfg.d_model, device=device)
+        self.attn = Attention(cfg, generator=generator, device=device,
+                              dtype=dtype)
+
+    def forward(self, cfg, x, positions, enc_out, enc_positions):
+        return x + attention(self.attn, cfg, self.ln(x), positions,
+                             causal=False, kv_x=enc_out,
+                             kv_positions=enc_positions, use_rope=False)
+
+    def decode(self, cfg, x, cross_k, cross_v):
+        """One token x (B, 1, D) against the cached K/V of the encoded
+        frames, (B, F, Hkv, Dh) each: plain float32 attention, as the JAX
+        package writes it in ``jnp``."""
+        b = x.shape[0]
+        q = self.attn.wq(self.ln(x)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        g = cfg.n_heads // cfg.n_kv_heads
+        qg = q.transpose(1, 2).reshape(b, cfg.n_kv_heads, g, 1, cfg.head_dim)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
+                         cross_k.transpose(1, 2).float()) / (
+                             cfg.head_dim ** 0.5)
+        og = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1),
+                          cross_v.transpose(1, 2).float())
+        o = og.reshape(b, cfg.n_heads, 1, cfg.head_dim).transpose(1, 2)
+        return x + self.attn.wo(o.reshape(b, 1, -1).to(x.dtype))
+
+
+def sinusoidal(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) float32: ``sin`` then ``cos`` of ``pos / 10000^(2i / d)``,
+    i < d / 2, as the JAX package's ``_sinusoidal``."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device), 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
 def _groups(cfg) -> tuple[int, int]:
     """(groups, layers of the group's own kind in a group) of the ssm and
     hybrid stacks: (n_layers // slstm_every, slstm_every - 1) mLSTM, or
@@ -133,9 +175,22 @@ class DecoderLM(nn.Module):
         self.ln_f = layers.RMSNorm(cfg.d_model, device=device)
         self.unembed = (None if cfg.tie_embeddings else
                         layers.Linear(cfg.d_model, cfg.vocab_size, **kw))
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "vlm", "moe"):
             self.layers = nn.ModuleList(DecoderBlock(cfg, **kw)
                                         for _ in range(cfg.n_layers))
+            if cfg.family == "vlm":
+                self.patch_proj = layers.Linear(cfg.d_model, cfg.d_model,
+                                                **kw)
+            return
+        if cfg.family == "audio":
+            self.enc_layers = nn.ModuleList(
+                DecoderBlock(cfg, **kw) for _ in range(cfg.n_encoder_layers))
+            self.dec_layers = nn.ModuleList(DecoderBlock(cfg, **kw)
+                                            for _ in range(cfg.n_layers))
+            self.cross_layers = nn.ModuleList(CrossBlock(cfg, **kw)
+                                              for _ in range(cfg.n_layers))
+            self.ln_enc = layers.RMSNorm(cfg.d_model, device=device)
+            self.frame_proj = layers.Linear(cfg.d_model, cfg.d_model, **kw)
             return
         n_grp, per = _groups(cfg)
         if cfg.family == "ssm":
@@ -162,11 +217,31 @@ class DecoderLM(nn.Module):
                              f"model's parameters ({self.cfg.name!r})")
         return cfg
 
-    def backbone(self, cfg, x, positions, *, window=0):
+    def encode_audio(self, cfg, frames, *, dtype=layers.COMPUTE_DTYPE):
+        """The audio encoder: stub frame embeddings (B, F, D), cast to
+        ``dtype`` -> its output (B, F, D)."""
+        frames = torch.as_tensor(frames, device=self.embed.table.device)
+        x = self.frame_proj(frames.to(dtype))
+        f = x.shape[1]
+        x = x + sinusoidal(f, cfg.d_model, x.device).to(x.dtype)[None]
+        pos = torch.arange(f, device=x.device).expand(x.shape[0], f)
+        for block in self.enc_layers:
+            x, _ = block(cfg, x, pos, causal=False)
+        return self.ln_enc(x)
+
+    def backbone(self, cfg, x, positions, *, window=0, enc_out=None):
         """The layer stack over x (B, S, D) -> (x, aux); aux is the sum of
-        the layers' router losses (0 outside the moe family)."""
+        the layers' router losses (0 outside the moe family).  The audio
+        decoder attends to ``enc_out`` (B, F, D) and, as in the JAX
+        package, takes no window."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cfg.family == "ssm":
+        if cfg.family == "audio":
+            b, f = enc_out.shape[:2]
+            enc_pos = torch.arange(f, device=x.device).expand(b, f)
+            for block, cross in zip(self.dec_layers, self.cross_layers):
+                x, _ = block(cfg, x, positions)
+                x = cross(cfg, x, positions, enc_out, enc_pos)
+        elif cfg.family == "ssm":
             for group, sl in zip(self.mlstm, self.slstm):
                 for ml in group:
                     x = x + ml(cfg, x)[0]
@@ -183,20 +258,34 @@ class DecoderLM(nn.Module):
                     aux = aux + a
         return x, aux
 
-    def hidden(self, batch, *, cfg=None, window=0):
-        """Final hidden states after ``ln_f``: (x (B, S, D), aux)."""
+    def hidden(self, batch, *, cfg=None, window=0,
+               dtype=layers.COMPUTE_DTYPE):
+        """Final hidden states after ``ln_f``, the vlm family's patch rows
+        trimmed: (x (B, S, D), aux).  Activations in ``dtype``: bf16 as in
+        the JAX package, float32 where a check wants no rounding between
+        the layers."""
         cfg = self._config(cfg)
-        tokens = torch.as_tensor(batch["tokens"],
-                                 device=self.embed.table.device)
-        b, s = tokens.shape
-        x = self.embed(tokens)
+        device = self.embed.table.device
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        x = self.embed(tokens, dtype=dtype)
+        n_front = 0
+        if cfg.family == "vlm":
+            patches = torch.as_tensor(batch["patches"], device=device)
+            patches = self.patch_proj(patches.to(x.dtype))
+            x = torch.cat([patches, x], 1)
+            n_front = patches.shape[1]
+        b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
-        x, aux = self.backbone(cfg, x, positions, window=window)
-        return self.ln_f(x), aux
+        enc_out = (self.encode_audio(cfg, batch["frames"], dtype=x.dtype)
+                   if cfg.family == "audio" else None)
+        x, aux = self.backbone(cfg, x, positions, window=window,
+                               enc_out=enc_out)
+        return self.ln_f(x)[:, n_front:], aux
 
     def forward(self, batch, *, cfg=None, window=0):
-        """``batch["tokens"]`` (B, S) ints -> (logits (B, S, V) in bf16,
-        aux)."""
+        """``batch["tokens"]`` (B, S) ints, with ``"patches"`` (B, P, D) in
+        the vlm family and ``"frames"`` (B, F, D) in the audio family ->
+        (logits (B, S, V) in bf16, aux)."""
         x, aux = self.hidden(batch, cfg=cfg, window=window)
         return self.logits(x), aux
 
@@ -222,6 +311,14 @@ class DecoderLM(nn.Module):
                 x = x + y
             return x
         kv = state["kv"]
+        if cfg.family == "audio":
+            for block, cross, k, v, ck, cv in zip(
+                    self.dec_layers, self.cross_layers, kv["k"], kv["v"],
+                    state["cross_k"], state["cross_v"]):
+                x = block.decode(cfg, x, {"k": k, "v": v}, pos,
+                                 window=window)
+                x = cross.decode(cfg, x, ck, cv)
+            return x
         if cfg.family == "hybrid":
             for g, group in enumerate(self.mamba):
                 x = self.shared_attn.decode(
@@ -279,11 +376,15 @@ def init_params(cfg, *, generator: torch.Generator | None = None,
 
 
 def init_decode_state(cfg, batch: int, cache_len: int, *, device="cuda",
-                      dtype: torch.dtype = layers.COMPUTE_DTYPE) -> dict:
+                      dtype: torch.dtype = layers.COMPUTE_DTYPE,
+                      frames: int | None = None) -> dict:
     """The decode state, as the JAX package's ``init_decode_state`` lays
     it out.  KV caches (zeros in ``dtype``, bf16 as in the JAX package):
     ``{"kv": {"k", "v"}}``, each (n_layers, batch, cache_len, Hkv, Dh), in
-    the dense and moe families; in the hybrid family one cache a group,
+    the dense, vlm and moe families; in the audio family also
+    ``"cross_k"`` and ``"cross_v"``, each (n_layers, batch, frames, Hkv,
+    Dh) (``frames`` defaults to ``cfg.n_frontend_tokens``); in the hybrid
+    family one cache a group,
     (n_grp, batch, cache_len, H, Dh), beside ``"mamba"`` (n_grp,
     attn_every, batch, nh, N, P).  The ssm family keeps no cache:
     ``"mlstm"`` (n_grp, slstm_every - 1, batch, H, dh, dh + 1) and
@@ -306,4 +407,9 @@ def init_decode_state(cfg, batch: int, cache_len: int, *, device="cuda",
     if cfg.family == "hybrid":
         state["mamba"] = torch.zeros(
             (*_groups(cfg), *ssm.mamba2_state_shape(cfg, batch)), **f32)
+    if cfg.family == "audio":
+        shape = (cfg.n_layers, batch, frames or cfg.n_frontend_tokens,
+                 cfg.n_kv_heads, cfg.head_dim)
+        for name in ("cross_k", "cross_v"):
+            state[name] = torch.zeros(shape, dtype=dtype, device=device)
     return state

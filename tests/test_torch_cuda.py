@@ -856,13 +856,89 @@ def test_flash_ragged_causal_lengths(cuda, s, window, dtype):
 
 @pytest.mark.cuda
 def test_flash_ragged_without_a_mask_raises(cuda):
+    """A ragged length with no mask runs on ``xla_chunked``'s blockwise
+    path, the padded keys bounded by ``kv_len`` (one launch, within the
+    plain version's tolerance on the unpadded inputs); off that path
+    (``pallas``) a ragged length raises, as the JAX kernel refuses it.
+    The name dates from before the key-length bound, when a ragged
+    length with no mask raised; it is kept so that the test's record
+    runs on."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v = _attn(gen, 1, 4, 2, 1000, 64, torch.float32)
     before = flash.launches
-    with pytest.raises(ValueError, match="no mask over ragged"):
-        ops.flash_attention(q, k, v, causal=False, ragged=True)
+    got = ops.flash_attention(q, k, v, causal=False, ragged=True)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1 and got.shape == q.shape
+    _attn_close(got, q, k, v, causal=False)
     with pytest.raises(ValueError, match="multiples of 128"):
         ops.flash_attention(q, k, v, causal=True)     # the pallas path
+    assert flash.launches == before + 1
+
+
+KV_LENS = (1, 63, 64, 65, 127, 129, 1500)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_flash_kernel_key_length_bound(cuda, d, dtype):
+    """``kv_len`` on K/V padded to a multiple of 128 (the padding random,
+    so that a key past the bound that were attended to would show): every
+    bound of ``KV_LENS`` (inside a tile, at its edges, past the first
+    tile, whisper's 1500 frames in 1536) with 256 queries and no mask; 4
+    query tiles against 1536 keys (``sq != sk``); causal over 1536 with
+    ``kv_len`` 1500 and with ``kv_len`` = sk, and a window of 200 with
+    ``kv_len`` 1000 over 1024 and over 1536 (there the last query tiles'
+    bands keep no key, and their rows get 0).  Each within the tolerance of ``ref.attention_ref``
+    with the same ``kv_len`` and of ``ref.attention_ref`` on the unpadded
+    tensors (on the rows that exist there)."""
+    gen = torch.Generator(device="cuda").manual_seed(d + 1)
+    cases = [(256, -(-n // 128) * 128, n, False, 0) for n in KV_LENS]
+    cases += [(512, 1536, 1500, False, 0), (1536, 1536, 1500, True, 0),
+              (1536, 1536, 1536, True, 0), (1024, 1024, 1000, True, 200),
+              (1536, 1536, 1000, True, 200)]
+    for sq, sk, kv_len, causal, window in cases:
+        q, k, v = _attn(gen, 1, 4, 2, sq, d, dtype, sk=sk)
+        before = flash.launches
+        got = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window, kv_len=kv_len)
+        torch.cuda.synchronize()
+        assert flash.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        mask = dict(causal=causal, window=window)
+        _attn_close(got, q, k, v, kv_len=kv_len, **mask)
+        rows = sq if sq != sk else kv_len
+        _attn_close(got[:, :, :rows].contiguous(), q[:, :, :rows],
+                    k[:, :, :kv_len], v[:, :, :kv_len], **mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_ragged_cross_attention(cuda, dtype):
+    """whisper's cross-attention shape, cut: 1000 queries over 1500 keys,
+    MHA at head dim 64, no mask, through ``xla_chunked``'s blockwise path:
+    q padded to 1024 by its own length, k/v to 1536 by theirs, one
+    launch, the padded keys masked by ``kv_len``."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = _attn(gen, 2, 6, 6, 1000, 64, dtype, sk=1500)
+    before = flash.launches
+    got = ops.flash_attention(q, k, v, causal=False, ragged=True)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    _attn_close(got, q, k, v, causal=False)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_a_key_length_out_of_range(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = _attn(gen, 1, 4, 2, 128, 64, torch.bfloat16, sk=256)
+    before = flash.launches
+    for kv_len in (0, 257, -1):
+        with pytest.raises(ValueError, match="kv_len"):
+            flash.flash_attention_cuda(q, k, v, causal=False, kv_len=kv_len)
     assert flash.launches == before
 
 

@@ -117,6 +117,63 @@ def test_unequal_lengths_without_a_mask_agree():
     np.testing.assert_allclose(got, oracle, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("sq,sk", [(1000, 1500), (4096, 1500), (300, 65),
+                                   (130, 1), (256, 129)])
+def test_pad_ragged_bounds_the_padded_keys(sq, sk):
+    """No mask over ragged lengths (whisper's encoder and cross-attention
+    over 1500 frames): ``ops.pad_ragged`` pads q by its own length and k/v
+    by theirs to multiples of 128 and passes ``kv_len`` = sk; with
+    ``ref.attention_ref`` (which takes the bound as the kernel does) as
+    the inner function, the result is ``attention_ref`` on the unpadded
+    inputs within 1e-6 in float32, and the JAX oracle's within 2e-4."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 4, 2, sq, 64,
+                                                    seed=sq + sk, sk=sk))
+    seen = []
+
+    def inner(*a, **kw):
+        seen.append((a[0].shape[2], a[1].shape[2], kw["kv_len"]))
+        return ref.attention_ref(*a, **kw)
+    got = ops.pad_ragged(inner, q, k, v, causal=False, window=0)
+    want = ref.attention_ref(q, k, v, causal=False)
+    assert seen == [(-(-sq // 128) * 128, -(-sk // 128) * 128, sk)]
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    if sq * sk <= 1000 * 1500:
+        oracle = jref.attention_ref(*(jnp.asarray(t.numpy())
+                                      for t in (q, k, v)), causal=False)
+        np.testing.assert_allclose(got.numpy(), np.asarray(oracle),
+                                   rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("kv_len", [1, 63, 64, 65, 127, 129, 200])
+@pytest.mark.parametrize("causal", [False, True])
+def test_key_length_bound_is_the_unpadded_call(kv_len, causal):
+    """``attention_ref(..., kv_len=n)`` on K/V whose keys past n are
+    random (padding that would show if attended to) equals the call on the
+    first n keys alone; causal over equal lengths, on the first n rows
+    (the padded rows see the first n keys)."""
+    sk = -(-kv_len // 128) * 128
+    q, k, v = (torch.from_numpy(a) for a in _inputs(
+        1, 4, 2, sk if causal else 256, 64, seed=kv_len, sk=sk))
+    got = ref.attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+    rows = kv_len if causal else q.shape[2]
+    want = ref.attention_ref(q[:, :, :rows], k[:, :, :kv_len],
+                             v[:, :, :kv_len], causal=causal)
+    torch.testing.assert_close(got[:, :, :rows], want, rtol=0, atol=1e-6)
+    if causal:      # a padded row sees every real key
+        torch.testing.assert_close(
+            got[:, :, rows:], ref.attention_ref(
+                q[:, :, rows:], k[:, :, :kv_len], v[:, :, :kv_len],
+                causal=False), rtol=0, atol=1e-6)
+    bound = ref.attention_rounding_bound(q.bfloat16(), k.bfloat16(),
+                                         v.bfloat16(), causal=causal,
+                                         kv_len=kv_len)
+    assert bound.shape == got.shape
+    for bad in (0, sk + 1):
+        with pytest.raises(ValueError, match="kv_len"):
+            ref.attention_ref(q, k, v, causal=causal, kv_len=bad)
+
+
 def test_backends_resolve_by_device_and_never_fall_back():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 1, 128, 32,
                                                     seed=4))
