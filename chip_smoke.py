@@ -328,7 +328,46 @@ Phases, each printing one JSON line:
    launches inside ``encode_audio`` and ``CrossBlock.forward``), device
    time by group (``audio_encoder``, ``cross_attention``: the aten work
    inside them);
-42. total -- the script's seconds; kernels -- one line listing every
+42. attn_bwd_check -- the attention backward kernel
+   (``flash_attention_bwd_cuda``: ``bwd_dq`` then ``bwd_dkdv``) against
+   ``ref.attention_bwd_ref`` at every head dim (32, 64, 80, 128), float32
+   and bf16, causal, window, no mask with sq != sk, ragged ``kv_len``, GQA
+   16:2 and MHA, the moe prefill's shape, and q 1000 over K/V 1000 and
+   1500 through ``ops.flash_attention(..., ragged=True)`` under autograd:
+   float32 within 2e-4 of max(1, max|want|), bf16 within that plus one
+   bf16 step of the value plus ``ref.attention_bwd_rounding_bound``; a
+   second call the same bits;
+43. attn_bwd_time -- the backward at internvl2-1b's training shape (q 2 x
+   14 x 4352 x 64, k/v 2 x 2 heads) and glm4-9b's (q 1 x 32 x 4096 x
+   128, k/v 2 heads), causal bf16: CUDA events beside the forward kernel,
+   the plain version and the backward of
+   ``F.scaled_dot_product_attention`` (``enable_gqa``; timed only, never
+   on the path), launches a call, and the bound (the five products'
+   operations, 2.5 times the forward's, at 989 TFLOP/s);
+44. lm_train_check -- one ``make_train_step`` step of internvl2-1b at full
+   width with 2 layers, float32 weights from a seed and float32
+   activations, on the card and on the CPU: 2 x (256 patches + 256
+   tokens) on the naive path (no flash launch) and 1 x (256 + 1000) on the
+   kernels (padded to 1280: 2 forward launches a layer with remat, 1
+   backward call); loss and gnorm within 1e-4 relative, m and v within
+   2e-4 of each leaf's largest, the parameters within 2 lr (a gradient
+   near 0 may take Adam's first step the other way) plus 1e-6;
+45. lm_train -- internvl2-1b at full width and depth (24 layers, 494.6 M
+   float32 parameters, remat, ``xla_chunked``), 2 x (256 patches + 4096
+   tokens) a step from ``launch.train.make_batch_fn``, nothing cut: one
+   warm-up and 10 steps; the losses (the last below the first), step p50
+   and p99, text tokens/s, peak memory, the flash launches a step
+   (forward, backward calls, backward kernels) counted in the run, no
+   call of the plain attention or its backward; one profiled step's idle
+   share (of its own wall and of the unprofiled p50) and device ms by
+   group (``attention_backward``,
+   ``flash_attention``, ``xent``, ``optimizer``, GEMMs, the rest);
+46. lm_pretrain -- xlstm-125m at full size through
+   ``launch.lm_pretrain.pretrain``: 10 steps of 8 x 256 tokens with a
+   checkpoint at 5 and 10, then again from the checkpoint at 5: the
+   resumed losses and the final parameters and moments bit for bit the
+   first run's;
+47. total -- the script's seconds; kernels -- one line listing every
    ported kernel with its launches,
    error, times, bound, launch floor and ``deterministic`` flag (and for
    flash attention the variant, and under ``variants``, keyed by variant
@@ -343,7 +382,8 @@ Phases, each printing one JSON line:
    and 15, per rank on the distributed paths).  The
    per-tree traversal is on no path any more (``launches`` 0,
    ``on_main_path`` false): it is listed as the counterpart of
-   ``ops.traverse_chunk``.
+   ``ops.traverse_chunk``.  The attention backward's entry has its
+   launches on ``lm_train`` and its times at both training shapes.
 
 Each LM is freed before the next is built (glm4-9b's 17.6 GB,
 deepseek-moe-16b's 33.3 GB, zamba2-2.7b's 4.6 GB, internvl2-1b's 1.0 GB
@@ -406,6 +446,13 @@ SASS_OPS = ("HGMMA", "UTMALDG")   # wgmma and TMA loads in cuobjdump -sass
 # and child mode, at the timed shape (this script on an H100 80GB HBM3 at
 # 700 W; PERF.md, kernel table)
 REPLACED_HIST_MS = {"direct": 0.3170, "left": 0.2552}
+# training: the backward at internvl2-1b's and glm4-9b's shapes, (batch, q
+# heads, kv heads, seq, head dim), causal bf16; the training cell
+BWD_SHAPES = {"internvl2_1b": (2, 14, 2, 4352, 64),
+              "glm4_9b": (1, 32, 2, 4096, 128)}
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_TEXT, TRAIN_STEPS = "internvl2-1b", 2, 4096, 10
+PRETRAIN = dict(arch="xlstm-125m", steps_n=10, batch=8, seq=256,
+                ckpt_every=5)
 
 
 def emit(phase: str, **fields) -> None:
@@ -923,6 +970,8 @@ def labelled(patches, launches: dict | None = None):
 
 def kernel_class(name: str) -> str:
     name = name.lower()
+    if "bwd_dq" in name or "bwd_dkdv" in name:
+        return "attention_backward"
     return ("flash_attention" if "flash_kernel" in name else "gemm"
             if any(t in name for t in ("gemm", "xmma", "cutlass", "nvjet",
                                        "sm90")) else "other")
@@ -937,6 +986,9 @@ def device_ms_by_group(prof, labels) -> tuple[dict, float]:
     Returns (groups, busy ms)."""
     groups = dict.fromkeys([*labels, "flash_attention", "gemm", "other"],
                            0.0)
+    classes = [kernel_class(ev.key) for ev in prof.key_averages()]
+    if "attention_backward" in classes:
+        groups["attention_backward"] = 0.0
     for ev in prof.key_averages():
         # a label's range also shows on the device's timeline: not a kernel
         if ev.device_type == torch.autograd.DeviceType.CUDA \
@@ -1130,6 +1182,9 @@ def reset_counts() -> None:
         setattr(mod, name, 0)
     for name in flash.launches_by_variant:
         flash.launches_by_variant[name] = 0
+    flash.bwd_launches = 0
+    for name in flash.bwd_launches_by_kernel:
+        flash.bwd_launches_by_kernel[name] = 0
 
 
 def read_counts() -> list:
@@ -1973,6 +2028,402 @@ def long_phase(model, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def attn_bwd_bound_ms(b, hq, hkv, sq, sk, d, itemsize, causal) -> tuple:
+    """The backward's least time: the unmasked (query, key) pairs at five
+    products of 2d operations each (2.5 times the forward's 4d) over the
+    dtype's peak rate, against q, o, do and k, v read once and dq, dk, dv
+    written once over the HBM rate."""
+    pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * sk)
+    rate = BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
+    t_ops = pairs * 10 * d / rate * 1e3
+    nbytes = itemsize * d * (4 * b * hq * sq + 4 * b * hkv * sk)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bwd_within(got, want, bound, dtype) -> tuple[bool, float, float]:
+    """The backward kernel's (dq, dk, dv) against the plain version's:
+    float32 within 2e-4 of max(1, max|want|) (sums in other orders, the
+    SFU's exp); bf16 within that plus one bf16 step of the value plus
+    ``bound`` (``ref.attention_bwd_rounding_bound``: P and dS rounded to
+    bf16 as operands).  Returns (within, max abs error, largest share of
+    the tolerance used)."""
+    ok, err, share = True, 0.0, 0.0
+    for g, w, bd in zip(got, want, bound):
+        w = w.float()
+        tol = ATTN_F32_TOL * max(1.0, float(w.abs().max()))
+        if dtype == torch.bfloat16:
+            tol = tol + BF16_STEP * w.abs() + bd
+        diff = (g.float() - w).abs()
+        ok &= bool((diff <= tol).all())
+        err = max(err, float(diff.max()))
+        share = max(share, float((diff / tol).max()))
+    return ok, err, share
+
+
+def attn_bwd_check(gen) -> dict:
+    """Phase attn_bwd_check: the backward kernel against its plain version
+    over the sweep; returns the worst error and share by variant."""
+    from repro_torch.kernels import flash_attention as flash, ops, ref
+    t_phase = time.perf_counter()
+    cases = [(1, 4, 4, 128, 128, True, 0, None),
+             (2, 16, 2, 256, 256, True, 0, None),
+             (1, 7, 1, 384, 384, True, 100, None),
+             (1, 16, 2, 256, 384, False, 0, 300),
+             (1, 16, 2, 256, 256, False, 0, None),
+             (1, 4, 2, 384, 384, True, 50, 200),
+             (1, 2, 2, 128, 1536, False, 0, 1500),
+             (1, 4, 4, 256, 256, False, 70, None)]
+    worst = {v: {"max_abs_err": 0.0, "share_of_tolerance": 0.0}
+             for v in flash.BWD_VARIANTS}
+    n, repeat, before = 0, True, flash.bwd_launches
+
+    def one(q, k, v, o, do, **mask):
+        nonlocal n, repeat
+        got = flash.flash_attention_bwd_cuda(q, k, v, o, do, **mask)
+        torch.cuda.synchronize()
+        want = ref.attention_bwd_ref(q, k, v, o, do, **mask)
+        bound = ref.attention_bwd_rounding_bound(q, k, v, o, do, **mask)
+        ok, err, share = bwd_within(got, want, bound, q.dtype)
+        again = flash.flash_attention_bwd_cuda(q, k, v, o, do, **mask)
+        repeat &= all(torch.equal(a, b) for a, b in zip(got, again))
+        w = worst[flash.bwd_variant(q.dtype)]
+        w["max_abs_err"] = max(w["max_abs_err"], err)
+        w["share_of_tolerance"] = max(w["share_of_tolerance"], share)
+        n += 1
+        check(ok, f"attention backward off its plain version: q "
+              f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype} {mask}, "
+              f"max_abs_err {err}, share of tolerance {share}")
+        return err, share
+
+    for b, hq, hkv, sq, sk, causal, window, kv_len in cases:
+        for d in (32, 64, 80, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = torch.randn((b, hq, sq, d), generator=gen,
+                                device="cuda").to(dtype)
+                k, v = (torch.randn((b, hkv, sk, d), generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                mask = dict(causal=causal, window=window, kv_len=kv_len)
+                o = flash.flash_attention_cuda(q, k, v, **mask)
+                do = torch.randn(o.shape, generator=gen,
+                                 device="cuda").to(dtype)
+                one(q, k, v, o, do, **mask)
+    # the moe prefill's shape (MHA 16:16, d 128), bf16
+    q, k, v = (torch.randn((2, 16, 4096, 128), generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    o = flash.flash_attention_cuda(q, k, v, causal=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").bfloat16()
+    moe_err, moe_share = one(q, k, v, o, do, causal=True)
+    del q, k, v, o, do
+    # ragged lengths through ops.flash_attention under autograd: padded to
+    # multiples of 128 outside the autograd function
+    ragged = {}
+    for sk, causal in ((1000, True), (1500, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((1, 8, 1000, 64), generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((1, 2, sk, 64), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = ops.flash_attention(*leaves, causal=causal, ragged=True)
+            out.backward(do)
+            o = out.detach()
+            want = ref.attention_bwd_ref(q, k, v, o, do, causal=causal)
+            bound = ref.attention_bwd_rounding_bound(q, k, v, o, do,
+                                                     causal=causal)
+            ok, err, share = bwd_within([t.grad for t in leaves], want,
+                                        bound, dtype)
+            check(ok, f"ragged backward (q 1000, k/v {sk}, causal "
+                  f"{causal}, {dtype}) off its plain version: {err}")
+            ragged[f"q1000_kv{sk}_{'causal' if causal else 'no_mask'}_"
+                   f"{str(dtype)[6:]}"] = dict(max_abs_err=err,
+                                                share_of_tolerance=share)
+    check(repeat, "the attention backward gave other bits on a second call")
+    out = dict(cases=n, within_tolerance=True, deterministic=repeat,
+               tolerance={"f32": "2e-4 * max(1, max|want|)",
+                          "bf16": "2e-4 * max(1, max|want|) + 2^-7 |want| "
+                                  "+ ref.attention_bwd_rounding_bound"},
+               by_variant=worst, ragged=ragged,
+               moe_shape=dict(q=[2, 16, 4096, 128], max_abs_err=moe_err,
+                              share_of_tolerance=moe_share),
+               bwd_launches=flash.bwd_launches - before,
+               seconds=time.perf_counter() - t_phase)
+    emit("attn_bwd_check", **out)
+    return out
+
+
+def attn_bwd_time(gen, name: str, shape: tuple) -> dict:
+    """Phase attn_bwd_time at one training shape, causal bf16."""
+    from repro_torch.kernels import flash_attention as flash, ref
+    t_phase = time.perf_counter()
+    b, hq, hkv, s, d = shape
+    q = torch.randn((b, hq, s, d), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    o = flash.flash_attention_cuda(q, k, v, causal=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").bfloat16()
+    before = dict(flash.bwd_launches_by_kernel)
+    calls = flash.bwd_launches
+    got = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal=True)
+    per_call = {n: flash.bwd_launches_by_kernel[n] - before[n]
+                for n in flash.BWD_KERNELS}
+    check(flash.bwd_launches - calls == 1 and all(
+        c == 1 for c in per_call.values()),
+        f"a backward call launched {per_call}")
+    want = ref.attention_bwd_ref(q, k, v, o, do, causal=True)
+    bound = ref.attention_bwd_rounding_bound(q, k, v, o, do, causal=True)
+    ok, err, share = bwd_within(got, want, bound, torch.bfloat16)
+    check(ok, f"attention backward at {name}'s shape off its plain "
+          f"version: {err}")
+    del want, bound
+    again = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal=True)
+    repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+    del got, again
+    ms, issue_ms = cuda_ms(lambda: flash.flash_attention_bwd_cuda(
+        q, k, v, o, do, causal=True), iters=10, warmup=2)
+    forward_ms, _ = cuda_ms(lambda: flash.flash_attention_cuda(
+        q, k, v, causal=True), iters=10, warmup=2)
+    plain_ms, _ = cuda_ms(lambda: ref.attention_bwd_ref(
+        q, k, v, o, do, causal=True), iters=2, warmup=1)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, enable_gqa=hq != hkv)
+    library_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), iters=10, warmup=2)
+    del out, leaves
+    bound_ms, bound_by = attn_bwd_bound_ms(b, hq, hkv, s, s, d, 2, True)
+    flops = b * hq * (s * (s + 1) // 2) * 10 * d
+    res = dict(ms=ms, issue_ms=issue_ms, forward_ms=forward_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / ms,
+               library_over_kernel=library_ms / ms,
+               tflops=flops / (ms * 1e-3) / 1e12, gflop=flops / 1e9,
+               max_abs_err=err, share_of_tolerance=share,
+               deterministic=repeat, launches_per_call=per_call)
+    emit("attn_bwd_time", kernel="flash_attention_bwd",
+         variant=flash.bwd_variant(q.dtype), name=name,
+         shape=dict(q=list(q.shape), kv=list(k.shape), causal=True,
+                    dtype="bfloat16"), **res,
+         bound_peak_tflops=BF16_OPS_PER_S / 1e12,
+         seconds=time.perf_counter() - t_phase)
+    return res
+
+
+def train_state_on(device, cfg, opt, seed: int):
+    """A train state from float32 weights drawn on the CPU from ``seed``,
+    moved to ``device``: the same weights on every device."""
+    from repro_torch.launch.steps import init_train_state
+    model, state = init_train_state(cfg, torch.Generator().manual_seed(seed),
+                                    opt, device="cpu")
+    model.to(device)
+    return model, {"m": {n: t.to(device) for n, t in state["m"].items()},
+                   "v": {n: t.to(device) for n, t in state["v"].items()},
+                   "step": state["step"].to(device)}
+
+
+def lm_train_check(rng) -> dict:
+    """Phase lm_train_check: one float32 train step, card against CPU, on
+    the naive path and on the kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=0, total_steps=10)
+    step = make_train_step(cfg, opt, dtype=torch.float32)
+    out = {}
+    for label, b, text in (("naive", 2, 256), ("kernels", 1, 1000)):
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, text)),
+                 "patches": torch.from_numpy(rng.normal(size=(
+                     b, cfg.n_frontend_tokens, cfg.d_model)).astype(
+                         np.float32))}
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model, state = train_state_on(device, cfg, opt, seed=12)
+            counts = (flash.launches, flash.bwd_launches)
+            model, state, metrics = step(model, state, batch)
+            runs[device] = dict(
+                model=model, state=state,
+                metrics={k: float(v) for k, v in metrics.items()},
+                launches=dict(forward=flash.launches - counts[0],
+                              backward_calls=flash.bwd_launches - counts[1]))
+        card, host = runs["cuda"], runs["cpu"]
+        rel = {k: abs(card["metrics"][k] - host["metrics"][k])
+               / abs(host["metrics"][k]) for k in ("loss", "gnorm")}
+        check(all(r <= 1e-4 for r in rel.values()),
+              f"lm_train_check {label}: card against CPU {rel}")
+        worst = {"params": (0.0, None), "m": (0.0, None), "v": (0.0, None)}
+        for (name, p), (_, want) in zip(card["model"].named_parameters(),
+                                        host["model"].named_parameters()):
+            diff = float((p.detach().cpu() - want.detach()).abs().max())
+            allow = 2 * opt.lr + 1e-6
+            check(diff <= allow, f"lm_train_check {label}: {name} moved "
+                  f"{diff} from the CPU's, beyond {allow}")
+            if diff / allow > worst["params"][0]:
+                worst["params"] = (diff / allow, name)
+            for part in ("m", "v"):
+                got = card["state"][part][name].cpu()
+                w = host["state"][part][name]
+                tol = 2e-4 * float(w.abs().max()) + 1e-30
+                share = float((got - w).abs().max()) / tol
+                check(share <= 1, f"lm_train_check {label}: {part} of "
+                      f"{name} off the CPU's by {share} of its tolerance")
+                if share > worst[part][0]:
+                    worst[part] = (share, name)
+        want_fwd = 2 * cfg.n_layers if label == "kernels" else 0
+        check(card["launches"] == dict(forward=want_fwd,
+                                       backward_calls=want_fwd // 2),
+              f"lm_train_check {label}: flash launches {card['launches']}")
+        out[label] = dict(
+            tokens=[b, cfg.n_frontend_tokens + text],
+            metrics={"cuda": card["metrics"], "cpu": host["metrics"]},
+            rel_err=rel, flash_launches=card["launches"],
+            worst_share_of_tolerance={k: {"share": v[0], "leaf": v[1]}
+                                      for k, v in worst.items()})
+        del runs, card, host
+    emit("lm_train_check", arch=TRAIN_ARCH, n_layers=cfg.n_layers,
+         attn_impl=cfg.attn_impl, remat=cfg.remat,
+         weights="random float32, seed 12", activations="float32",
+         tolerance={"loss_gnorm_rel": 1e-4,
+                    "m_v": "2e-4 of the leaf's largest",
+                    "params": "2 lr + 1e-6"}, **out,
+         seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def lm_train_phase(rng) -> dict:
+    """Phase lm_train: internvl2-1b at full width, 10 steps after one
+    warm-up, the counts reset just before the timed steps and read just
+    after, then one profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash, ref
+    from repro_torch.launch import steps as steps_lib, train as train_lib
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.optim import AdamWConfig
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=3, total_steps=TRAIN_STEPS + 2)
+    model, state = steps_lib.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(13), opt,
+        device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    step = steps_lib.make_train_step(cfg, opt)
+    batch_fn = train_lib.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_TEXT,
+                                       device="cuda")
+    losses, gnorms, step_ms = [], [], []
+    model, state, m = step(model, state, batch_fn(0))       # warm-up
+    losses.append(float(m["loss"]))
+    gnorms.append(float(m["gnorm"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain_calls = []
+    with contextlib.ExitStack() as stack:
+        for fn in ("attention_ref", "attention_bwd_ref"):
+            real = getattr(ref, fn)
+            stack.callback(setattr, ref, fn, real)
+            setattr(ref, fn, lambda *a, _r=real, _n=fn, **kw:
+                    plain_calls.append(_n) or _r(*a, **kw))
+        reset_counts()
+        for i in range(1, TRAIN_STEPS + 1):
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, batch_fn(i))
+            losses.append(float(m["loss"]))            # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            gnorms.append(float(m["gnorm"]))
+        launches = dict(
+            forward=flash.launches / TRAIN_STEPS,
+            backward_calls=flash.bwd_launches / TRAIN_STEPS,
+            backward_kernels={n: c / TRAIN_STEPS for n, c in
+                              flash.bwd_launches_by_kernel.items()})
+        total_bwd, total_fwd = flash.bwd_launches, flash.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not plain_calls, f"lm_train called the plain attention: "
+          f"{sorted(set(plain_calls))}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"lm_train: the loss did not fall: {losses}")
+    check(launches["forward"] == 2 * cfg.n_layers
+          and launches["backward_calls"] == cfg.n_layers,
+          f"lm_train: flash launches a step {launches}, want "
+          f"{2 * cfg.n_layers} forward (remat) and {cfg.n_layers} backward")
+    # one profiled step: device time by group and the idle share
+    labels = ["xent", "optimizer"]
+    with labelled([(lm_layers, "_xent_sum", "xent"),
+                   (steps_lib, "adamw_update", "optimizer")]):
+        batch = batch_fn(TRAIN_STEPS + 1)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, busy = device_ms_by_group(prof, labels)
+    p50, p99 = (float(np.percentile(step_ms, q)) for q in (50, 99))
+    res = dict(losses=losses, gnorms=gnorms, step_ms=step_ms, p50_ms=p50,
+               p99_ms=p99, text_tokens_per_s=TRAIN_BATCH * TRAIN_TEXT
+               / (p50 / 1e3), max_memory_allocated_gb=peak_gb,
+               flash_launches_per_step=launches,
+               backward_calls=total_bwd, forward_launches=total_fwd,
+               params=n_params)
+    emit("lm_train", arch=TRAIN_ARCH, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_heads=cfg.n_heads,
+         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+         vocab_size=cfg.vocab_size, weights="random float32, seed 13",
+         remat=cfg.remat, attn_impl=cfg.attn_impl, batch=TRAIN_BATCH,
+         tokens=[TRAIN_BATCH, cfg.n_frontend_tokens + TRAIN_TEXT],
+         reduced=[], optimizer=dataclasses.asdict(opt), warmup_steps=1,
+         steps=TRAIN_STEPS, **res,
+         profiled_step=dict(wall_ms=wall_ms, device_busy_ms=busy,
+                            idle_share=1 - busy / wall_ms,
+                            # the profiler slows the host: against the
+                            # unprofiled steps' p50 too
+                            idle_share_of_p50=1 - busy / p50,
+                            device_ms_by_group=groups,
+                            share_by_group=shares(groups, busy)),
+         seconds=time.perf_counter() - t_phase)
+    del model, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_pretrain_phase() -> dict:
+    """Phase lm_pretrain: the pretraining entry point, then its resume."""
+    from repro_torch.launch import lm_pretrain
+    t_phase = time.perf_counter()
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_pretrain"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(PRETRAIN, ckpt_dir=str(ckpt), device="cuda")
+    arch = kw.pop("arch")
+    t0 = time.perf_counter()
+    first = lm_pretrain.pretrain(arch, **kw)
+    first_s = time.perf_counter() - t0
+    last = ckpt / f"step_{PRETRAIN['steps_n']:08d}.npz"
+    with np.load(last) as data:
+        final = {k: data[k] for k in data.files}
+    last.unlink()
+    resumed = lm_pretrain.pretrain(arch, **kw)
+    at = PRETRAIN["ckpt_every"]
+    with np.load(last) as data:
+        equal = sorted(final) == sorted(data.files) and all(
+            np.array_equal(final[k], data[k]) for k in data.files)
+    check(all(np.isfinite(first)), f"lm_pretrain: losses {first}")
+    check(resumed == first[at:], f"lm_pretrain: resumed losses {resumed} "
+          f"are not the first run's {first[at:]}")
+    check(equal, "lm_pretrain: the resumed run's final state differs")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = dict(losses=first, resumed_losses=resumed, resumed_at=at,
+               resumed_bit_equal=True, final_state_bit_equal=equal,
+               first_run_seconds=first_s)
+    emit("lm_pretrain", arch=arch, batch=PRETRAIN["batch"],
+         seq=PRETRAIN["seq"], steps=PRETRAIN["steps_n"],
+         checkpoint_every=at, **out, seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2045,8 +2496,19 @@ def main() -> int:
         c for op, c in hist_atomics.items() if ".CAS" in op)
     check(not cas_loops, f"libhist.so adds with compare-and-swap loops: "
           f"{hist_atomics}")
+    bwd_regs = {f"{kind}_{dt}_d{d}": next(
+        ({"registers": v.get("registers"),
+          "spill_bytes": v.get("spill_stores", 0) + v.get("spill_loads", 0)}
+         for k, v in ptxas["flash_attention_bwd"].items()
+         if re.search(f"{kind}I{sym}Li{d}E", k)), None)
+        for kind in flash.BWD_KERNELS
+        for dt, sym in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
+        for d in flash.HEAD_DIMS}
+    check(all(r is not None for r in bwd_regs.values()),
+          f"ptxas did not report every backward instance: {bwd_regs}")
     emit("build", seconds=build_seconds, libraries=sorted(libs),
          ptxas=ptxas, flash_wgmma_registers=wgmma_regs,
+         flash_bwd_registers=bwd_regs,
          flash_sass_counts=flash_sass,
          hist_sass_atomics=hist_atomics, hist_cas_loops=cas_loops,
          sass_note=None if flash_sass is not None else
@@ -3758,7 +4220,19 @@ def main() -> int:
     del amodel
     torch.cuda.empty_cache()
 
-    # 42. kernels ---------------------------------------------------------
+    # 42. attn_bwd_check, 43. attn_bwd_time -------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bwd_check = attn_bwd_check(gen)
+    bwd_timing = {name: attn_bwd_time(gen, name, shape)
+                  for name, shape in BWD_SHAPES.items()}
+    torch.cuda.empty_cache()
+
+    # 44. lm_train_check, 45. lm_train, 46. lm_pretrain --------------------
+    lm_train_check(rng)
+    lm_train = lm_train_phase(rng)
+    lm_pretrain_phase()
+
+    # 47. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
         t = forest_timing[binned]
@@ -3895,6 +4369,7 @@ def main() -> int:
                              "ssm_prefill": ssm_prefill["launches"],
                              "vlm_prefill": vlm_prefill["launches"],
                              "audio_prefill": audio_prefill["launches"],
+                             "lm_train": lm_train["forward_launches"],
                              "decode": decode_counts[-1],
                              "moe_decode": moe_decode_counts[-1],
                              "hybrid_decode": hyb_decode_counts[-1],
@@ -3922,6 +4397,39 @@ def main() -> int:
         "floor_ms": floor_ms,
         "library_ms": attn_timing["library_ms"],
         "deterministic": repeats["flash_attention"],
+    })
+    vlm_bwd = bwd_timing["internvl2_1b"]
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # the gradient of the flash kernel, which has no VJP in Pallas; the
+        # JAX package trains through _flash_xla's rematerialised scan
+        "replaces": "src/repro/kernels/flash_attention.py:70",
+        "replaces_note": "its VJP: src/repro/models/attention.py:98 "
+                         "(_flash_xla under jax.checkpoint)",
+        "variant": "bwd_mma_bf16",
+        "variants": {
+            f"bwd_mma_bf16_{name}": {
+                "shape": dict(zip(("batch", "q_heads", "kv_heads", "seq",
+                                   "head_dim"), BWD_SHAPES[name])), **t}
+            for name, t in bwd_timing.items()},
+        "registers": bwd_regs,
+        "launches": lm_train["backward_calls"],
+        "launches_per_step": lm_train["flash_launches_per_step"][
+            "backward_calls"],
+        "kernel_launches_per_call": len(flash.BWD_KERNELS),
+        "launches_by_path": {"lm_train": lm_train["backward_calls"]},
+        "max_abs_err": vlm_bwd["max_abs_err"],
+        "check_max_abs_err": bwd_check["by_variant"],
+        "ms": vlm_bwd["ms"],
+        "plain_ms": vlm_bwd["plain_ms"],
+        "bound_ms": vlm_bwd["bound_ms"],
+        "bound_by": vlm_bwd["bound_by"],
+        "floor_ms": floor_ms,
+        "library_ms": vlm_bwd["library_ms"],
+        "deterministic": bwd_check["deterministic"]
+        and all(t["deterministic"] for t in bwd_timing.values()),
     })
     emit("total", seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,8 +24,10 @@ paper in a minute.
 It also prefills the dense and moe LM families (``repro_torch.models``,
 ``repro_torch.launch.steps.make_prefill_step``) through a hand-written
 flash-attention kernel, and serves them by greedy decode against a KV
-cache (``make_serve_step``; ``python -m repro_torch.launch.serve``).
-Entry points run on the card unless the caller passes ``device="cpu"``.
+cache (``make_serve_step``; ``python -m repro_torch.launch.serve``),
+and trains every LM family (``make_train_step``, ``repro_torch.optim``;
+``python -m repro_torch.launch.train``) through a hand-written backward
+of the flash kernel.  Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from .checkpoint import load_gbdt, model_from_numpy, save_gbdt

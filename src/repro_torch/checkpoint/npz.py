@@ -12,7 +12,10 @@ each), ``slstm`` (one axis, the group), ``mlstm`` and ``mamba`` (two: the
 group, then the layer in it); ``shared_attn``, ``patch_proj``,
 ``frame_proj`` and ``ln_enc`` are not stacked.  bf16 arrays, which numpy
 stores as raw 2-byte voids, are read back as bf16.  Writes are atomic
-(tmp + rename).
+(tmp + rename).  A training checkpoint adds the AdamW state under the
+JAX launcher's keys (:func:`save_checkpoint` with ``opt_state``,
+:func:`restore_checkpoint`, :func:`latest_step`), so a run of either
+package resumes the other's.
 
 A decode state crosses the same way (:func:`decode_state_from_numpy`,
 :func:`decode_state_to_numpy`): ``kv/k``, ``kv/v``, ``cross_k``,
@@ -24,6 +27,7 @@ the JAX package stacks them.
 from __future__ import annotations
 
 import os
+import re
 import tempfile
 
 import numpy as np
@@ -120,8 +124,14 @@ def load_checkpoint(path: str, cfg, *, device="cuda",
 def to_numpy(model: DecoderLM) -> dict[str, np.ndarray]:
     """The model's parameters as JAX flat-path float32 arrays, stacked axes
     first (a bf16 weight widens to float32 exactly)."""
+    return _stacked(model.named_parameters())
+
+
+def _stacked(named) -> dict[str, np.ndarray]:
+    """(parameter name, tensor) pairs -> JAX flat-path float32 arrays,
+    stacked axes first."""
     grouped: dict[str, list] = {}
-    for name, p in model.named_parameters():
+    for name, p in named:
         key, index = flat_key(name)
         grouped.setdefault(key, []).append(
             (index, p.detach().to("cpu", torch.float32).numpy()))
@@ -138,21 +148,79 @@ def to_numpy(model: DecoderLM) -> dict[str, np.ndarray]:
     return out
 
 
-def save_checkpoint(ckpt_dir: str, step: int, model: DecoderLM) -> str:
+def save_checkpoint(ckpt_dir: str, step: int, model: DecoderLM,
+                    opt_state: dict | None = None) -> str:
     """Write ``step_<step>.npz`` with the JAX package's keys and layout,
     float32, which its ``restore_checkpoint`` reads into an
-    ``init_params`` target."""
+    ``init_params`` target; with ``opt_state`` (``optim.adamw_init``'s) a
+    training checkpoint, the JAX launcher's ``{"params", "opt": {"m", "v",
+    "step"}}`` (keys ``params/...``, ``opt/m/...``, ``opt/v/...`` and
+    ``opt/step``, int32)."""
+    flat = to_numpy(model)
+    if opt_state is not None:
+        flat = {f"params{_SEP}{k}": a for k, a in flat.items()}
+        for part in ("m", "v"):
+            flat.update({f"opt{_SEP}{part}{_SEP}{k}": a for k, a in
+                         _stacked(opt_state[part].items()).items()})
+        flat[f"opt{_SEP}step"] = np.asarray(int(opt_state["step"]), np.int32)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            np.savez(f, **to_numpy(model))
+            np.savez(f, **flat)
         os.replace(tmp, path)
     except BaseException:
         os.unlink(tmp)
         raise
     return path
+
+
+@torch.no_grad()
+def _load_into(named, flat, prefix: str) -> None:
+    """Copy the arrays at ``prefix`` + each parameter's JAX path into the
+    (name, tensor) pairs, in place, in each tensor's dtype."""
+    arrays: dict[str, torch.Tensor] = {}
+    for name, t in named:
+        key, index = flat_key(name)
+        key = prefix + key
+        if key not in arrays:
+            if key not in flat:
+                raise KeyError(f"checkpoint missing {key!r}")
+            arrays[key] = _from_numpy(flat[key])
+        arr = arrays[key] if index is None else arrays[key][index]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {key}: checkpoint "
+                             f"{tuple(arr.shape)} vs target {tuple(t.shape)}")
+        t.copy_(arr)
+
+
+def restore_checkpoint(path: str, model: DecoderLM, opt_state: dict):
+    """Read a training checkpoint written by either package (``params/...``
+    and ``opt/...``, as the JAX launcher writes it) into ``model`` and
+    ``opt_state`` IN PLACE -> (model, opt_state).  (A params checkpoint
+    loads with :func:`load_checkpoint`.)  Raises KeyError on a missing
+    path, ValueError on a shape that does not match.
+    """
+    with np.load(path) as data:
+        _load_into(model.named_parameters(), data, f"params{_SEP}")
+        for part in ("m", "v"):
+            _load_into(opt_state[part].items(), data,
+                       f"opt{_SEP}{part}{_SEP}")
+        step = int(data[f"opt{_SEP}step"])
+    opt_state["step"] = torch.tensor(step, dtype=torch.int32,
+                                     device=opt_state["step"].device)
+    return model, opt_state
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """The largest ``step`` of the ``step_<step>.npz`` files in
+    ``ckpt_dir``, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for f in os.listdir(ckpt_dir)
+             if (m := re.match(r"step_(\d+)\.npz$", f))]
+    return max(steps) if steps else None
 
 
 def _map_state(state, fn, path: str = ""):

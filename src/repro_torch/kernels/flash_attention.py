@@ -5,8 +5,10 @@ The kernels take CUDA tensors only: this wrapper checks device, dtype,
 shape, contiguity and alignment, raises on anything they do not take,
 and never falls back to the plain version (``ref.attention_ref``).  The
 CPU path is chosen by ``ops.flash_attention`` from the tensor's device.
-The JAX kernel has no VJP, so neither has this one: an input that
-requires a gradient is refused.
+The JAX kernel has no VJP.  The gradient is :func:`flash_attention_bwd_cuda`
+(``csrc/flash_attention_bwd.cu``), which ``ops.flash_attention`` wraps
+with this kernel in a ``torch.autograd.Function``; both entries here take
+detached tensors and refuse an input that requires a gradient.
 
 Two kernels, chosen by :func:`variant` from the dtype alone: every bf16
 call runs on the Hopper kernel (``wgmma`` on the tensor cores, TMA, P
@@ -15,7 +17,9 @@ CUDA-core kernel, which keeps P in float32.  A failure of the chosen
 kernel raises; no call is retried on the other.
 
 ``launches`` counts the kernel launches of this process,
-``launches_by_variant`` the same launches by kernel.
+``launches_by_variant`` the same launches by kernel.  ``bwd_launches``
+counts the calls of the backward (two kernel launches each, counted by
+kernel in ``bwd_launches_by_kernel``).
 """
 
 from __future__ import annotations
@@ -43,7 +47,15 @@ VARIANTS = ("wgmma_bf16", "cuda_core_f32")
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
+# the backward: bf16 on the tensor cores (mma.sync), float32 on the CUDA
+# cores, each as two kernels, bwd_dq (with lse and delta) then bwd_dkdv
+BWD_VARIANTS = ("bwd_mma_bf16", "bwd_cuda_core_f32")
+BWD_KERNELS = ("bwd_dq", "bwd_dkdv")
+bwd_launches = 0
+bwd_launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)
+
 _fns: dict = {}
+_bwd_fns: dict = {}
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
@@ -70,25 +82,50 @@ def _kernel(name: str):
     return _fns[name]
 
 
-def _check(q, k, v, window, kv_len):
-    name = "flash_attention_cuda"
+def bwd_variant(dtype: torch.dtype) -> str:
+    """The backward's kernels for a call of this dtype."""
+    return "bwd_mma_bf16" if dtype == torch.bfloat16 else "bwd_cuda_core_f32"
+
+
+def _bwd_kernel(name: str):
+    """The C entry of a backward variant."""
+    if not _bwd_fns:
+        lib = _build.library("flash_attention_bwd")
+        for variant_name, entry in (
+                ("bwd_mma_bf16", "flash_attention_bwd_bf16"),
+                ("bwd_cuda_core_f32", "flash_attention_bwd_f32")):
+            fn = getattr(lib, entry)
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                           + [ctypes.c_float] + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _bwd_fns[variant_name] = fn
+    return _bwd_fns[name]
+
+
+def _check_tensor(name, t, arg):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: {arg} is on {t.device}; it must be a "
+                         "CUDA tensor")
+    if t.dtype not in DTYPES:
+        raise TypeError(f"{name}: {arg} must be float32 or bfloat16, got "
+                        f"{t.dtype}")
+    if t.ndim != 4:
+        raise ValueError(f"{name}: {arg} must be (batch, heads, seq, d), "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {arg} is not contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {arg} is not 16-byte aligned")
+    if t.requires_grad:
+        raise ValueError(f"{name}: {arg} requires grad; the kernel takes "
+                         "detached tensors (ops.flash_attention wraps it "
+                         "for autograd)")
+
+
+def _check(q, k, v, window, kv_len, name="flash_attention_cuda"):
     for t, arg in ((q, "q"), (k, "k"), (v, "v")):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: {arg} is on {t.device}; it must be a "
-                             "CUDA tensor")
-        if t.dtype not in DTYPES:
-            raise TypeError(f"{name}: {arg} must be float32 or bfloat16, got "
-                            f"{t.dtype}")
-        if t.ndim != 4:
-            raise ValueError(f"{name}: {arg} must be (batch, heads, seq, d), "
-                             f"got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} is not 16-byte aligned")
-        if t.requires_grad:
-            raise ValueError(f"{name}: {arg} requires grad; the kernel has "
-                             "no backward")
+        _check_tensor(name, t, arg)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{name}: q, k and v differ in dtype ({q.dtype}, "
                         f"{k.dtype}, {v.dtype})")
@@ -160,3 +197,64 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     launches_by_variant[name] += 1
     return out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, kv_len: int | None = None,
+                             lse: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The gradients (dq, dk, dv) of :func:`flash_attention_cuda`'s output
+    ``o`` against ``do``, in two kernel launches (``bwd_dq``, then
+    ``bwd_dkdv``).
+
+    q, k, v and the mask as :func:`flash_attention_cuda` takes them; ``o``
+    its output and ``do`` the output's gradient, both shaped like q, in
+    q's dtype, contiguous.  ``lse`` (batch, q_heads, sq) float32, the rows'
+    log-sum-exp of the kept scaled scores (+inf where a row keeps none), if
+    the caller has it; by default the first kernel computes it.  dq, dk,
+    dv come in the inputs' dtype: float32 within float32 rounding of
+    ``ref.attention_bwd_ref``; bf16 within ``ref.
+    attention_bwd_rounding_bound`` (P and dS rounded to bf16 as operands)
+    and one rounding of the result.  dk and dv sum over the query heads of
+    a group.  The same inputs give the same bits: no float atomics.
+    """
+    global bwd_launches
+    name = "flash_attention_bwd_cuda"
+    _check(q, k, v, window, kv_len, name=name)
+    for t, arg in ((o, "o"), (do, "do")):
+        _check_tensor(name, t, arg)
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} {t.dtype} must "
+                             f"match q {tuple(q.shape)} {q.dtype}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    kv_len = sk if kv_len is None else kv_len
+    check_attention_lengths(sq, sk, causal=causal, window=window)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    stats = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
+    if lse is not None:
+        if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+            raise ValueError(f"{name}: lse must be ({b}, {hq}, {sq}) "
+                             f"float32, got {tuple(lse.shape)} {lse.dtype}")
+        stats[0].copy_(lse)
+    variant_name = bwd_variant(q.dtype)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    dims = (b, hq, hkv, sq, sk, kv_len, d, 1.0 / d ** 0.5, int(causal),
+            int(window), int(lse is not None), stream)
+    with torch.cuda.device(q.device):
+        err = _bwd_kernel(variant_name)(*ptrs, *dims)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd ({variant_name}) kernel "
+                           f"launch failed: cudaError_t {err}")
+    bwd_launches += 1
+    for kernel_name in BWD_KERNELS:
+        bwd_launches_by_kernel[kernel_name] += 1
+    return dq, dk, dv

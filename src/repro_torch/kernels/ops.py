@@ -299,13 +299,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     in the JAX package takes any length) a call of other lengths runs the
     kernel on inputs padded to the next multiples, with the padded keys
     masked by the kernel's key-length bound (:func:`pad_ragged`).
+
+    Under grad mode, where an input requires a gradient, the call goes
+    through :class:`FlashAttention`, whose backward is the backward kernel
+    on the card and ``ref.attention_bwd_ref`` on the CPU; padding and
+    slicing stay outside it, so they are differentiated as they are.
     """
-    if resolve(backend, q.device) == "cuda":
+    on_card = resolve(backend, q.device) == "cuda"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        kernel = flash_attention_fn
+    elif on_card:
         kernel = flash_kernel.flash_attention_cuda
-        if ragged:
-            return pad_ragged(kernel, q, k, v, causal=causal, window=window)
-        return kernel(q, k, v, causal=causal, window=window)
-    return ref.attention_ref(q, k, v, causal=causal, window=window)
+    else:
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    if on_card and ragged:
+        return pad_ragged(kernel, q, k, v, causal=causal, window=window)
+    return kernel(q, k, v, causal=causal, window=window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: on a CUDA tensor the forward kernel
+    (``flash_attention_cuda``) and the backward kernel
+    (``flash_attention_bwd_cuda``), each given detached tensors; on a CPU
+    tensor ``ref.attention_ref`` and ``ref.attention_bwd_ref``.  Nothing
+    falls back from one to the other.  Saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len):
+        q, k, v = (t.detach() for t in (q, k, v))
+        mask = dict(causal=causal, window=window, kv_len=kv_len)
+        if q.device.type == "cuda":
+            out = flash_kernel.flash_attention_cuda(q, k, v, **mask)
+        else:
+            out = ref.attention_ref(q, k, v, **mask)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        out, do = out.detach(), do.detach()    # the saved output is tracked
+        if q.device.type == "cuda":
+            grads = flash_kernel.flash_attention_bwd_cuda(
+                q, k, v, out, do.contiguous(), **ctx.mask)
+        else:
+            grads = ref.attention_bwd_ref(q, k, v, out, do, **ctx.mask)
+        return (*grads, None, None, None)
+
+
+def flash_attention_fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0,
+                       kv_len: int | None = None) -> torch.Tensor:
+    """:class:`FlashAttention` with keyword masks, as :func:`pad_ragged`
+    calls it."""
+    return FlashAttention.apply(q, k, v, causal, window, kv_len)
 
 
 def pad_ragged(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

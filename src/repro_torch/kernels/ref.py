@@ -543,9 +543,24 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.float().reshape(b, hkv, g * sq, d)
     s = (qg @ k.float().transpose(-1, -2)).reshape(b, hkv, g, sq, sk)
     s = s / (d ** 0.5)
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    mask = _attention_mask(sq, sk, causal=causal, window=window,
+                           kv_len=kv_len, device=q.device)
+    p = torch.softmax(s.masked_fill_(~mask, float("-inf")), dim=-1)
+    del s
+    # in place unless autograd keeps p for softmax's backward (same values)
+    p = (p.masked_fill(torch.isnan(p), 0.0) if p.requires_grad
+         else p.masked_fill_(torch.isnan(p), 0.0))
+    out = p.reshape(b, hkv, g * sq, sk) @ v.float()
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _attention_mask(sq: int, sk: int, *, causal: bool, window: int,
+                    kv_len: int | None, device) -> torch.Tensor:
+    """(sq, sk) bool, the (query, key) pairs that :func:`attention_ref`
+    keeps."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window > 0:
@@ -554,8 +569,84 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if not 1 <= kv_len <= sk:
             raise ValueError(f"kv_len must lie in [1, sk={sk}], got {kv_len}")
         mask &= kpos < kv_len
-    p = torch.softmax(s.masked_fill_(~mask, float("-inf")), dim=-1)
+    return mask
+
+
+def _attention_bwd_parts(q, k, v, o, do, *, causal, window, kv_len):
+    """The float32 pieces of the attention gradient, grouped as (b, hkv,
+    g * sq, ...): P, dS, and q, k, do as float32."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    check_attention_lengths(sq, sk, causal=causal, window=window)
+    if hq % hkv:
+        raise ValueError(f"q_heads {hq} is not a multiple of kv_heads {hkv}")
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g * sq, d)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, hkv, g * sq, d)
+    mask = _attention_mask(sq, sk, causal=causal, window=window,
+                           kv_len=kv_len, device=q.device).repeat(g, 1)
+    s = (qf @ kf.transpose(-1, -2)) / (d ** 0.5)
+    s = s.masked_fill_(~mask, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    # a row that keeps no key: lse = -inf, and its p is 0
+    p = torch.exp(s.sub_(lse.masked_fill_(torch.isinf(lse), float("inf"))))
     del s
-    p = p.masked_fill_(torch.isnan(p), 0.0)
-    out = p.reshape(b, hkv, g * sq, sk) @ v.float()
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    delta = (do.float() * o.float()).sum(-1).reshape(b, hkv, g * sq, 1)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    return p, ds, qf, kf, dof
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      kv_len: int | None = None):
+    """The gradients (dq, dk, dv) of :func:`attention_ref` against the
+    output's gradient ``do``, explicit and unfused, in float32.
+
+    The FlashAttention-2 form that the card's backward kernel computes:
+    ``P = exp(S - lse)`` over the kept keys (S the scores divided by
+    ``d ** 0.5``), ``delta = rowsum(do * o)`` with ``o`` the forward's
+    output as given, ``dS = P * (do V^T - delta)``, ``dv = P^T do``, ``dk =
+    dS^T q / sqrt(d)``, ``dq = dS K / sqrt(d)``; GQA's dk and dv sum over
+    the query heads of a group.  A row that keeps no key has zero
+    gradients.  Returns each in its input's dtype.
+    """
+    b, hq, sq, d = q.shape
+    p, ds, qf, kf, dof = _attention_bwd_parts(
+        q, k, v, o, do, causal=causal, window=window, kv_len=kv_len)
+    dv = p.transpose(-1, -2) @ dof
+    del p
+    dk = (ds.transpose(-1, -2) @ qf) / (d ** 0.5)
+    dq = (ds @ kf) / (d ** 0.5)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def attention_bwd_rounding_bound(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, o: torch.Tensor,
+                                 do: torch.Tensor, *, causal: bool = True,
+                                 window: int = 0,
+                                 kv_len: int | None = None):
+    """How far the bf16 backward kernel may lie from the float32
+    :func:`attention_bwd_ref`, element by element, from its rounding of P
+    and dS to bf16 as the operands of its products.
+
+    Each is rounded to nearest even (relative error at most 2^-9): P as
+    the A operand of ``dv = P^T do``, dS as that of ``dk = dS^T q /
+    sqrt(d)`` and ``dq = dS K / sqrt(d)``.  So dv moves by at most
+    ``2^-9 P^T |do|``, dk by ``2^-9 |dS|^T |q| / sqrt(d)`` and dq by
+    ``2^-9 |dS| |K| / sqrt(d)``.  The bound is twice that, for margin.
+
+    Returns:
+      (bound_dq, bound_dk, bound_dv) float32, shaped like q, k and v.
+    """
+    b, hq, sq, d = q.shape
+    p, ds, qf, kf, dof = _attention_bwd_parts(
+        q, k, v, o, do, causal=causal, window=window, kv_len=kv_len)
+    bv = 2.0 ** -8 * (p.transpose(-1, -2) @ dof.abs())
+    del p
+    ds = ds.abs_()
+    bk = 2.0 ** -8 * (ds.transpose(-1, -2) @ qf.abs()) / (d ** 0.5)
+    bq = 2.0 ** -8 * (ds @ kf.abs()) / (d ** 0.5)
+    return bq.reshape(b, hq, sq, d), bk, bv

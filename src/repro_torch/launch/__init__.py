@@ -1,5 +1,7 @@
 """Launch layer: the GBDT serving entry point (``serve_gbdt``), the
 process groups of the distributed trainer (``distributed``) and its
 example (``distributed_gbdt``), the quickstart, and the LM's steps
-(``steps.make_prefill_step``, ``steps.make_serve_step``), its greedy
-serving launcher (``serve``) and the serving demo (``serve_decode``)."""
+(``steps.make_train_step``, ``steps.make_prefill_step``,
+``steps.make_serve_step``), its training launcher (``train``) and
+pretraining entry point (``lm_pretrain``), its greedy serving launcher
+(``serve``) and the serving demo (``serve_decode``)."""

@@ -1,13 +1,13 @@
-"""Model substrate of the port: the LM of the dense, moe, ssm and hybrid
-families (prefill and decode).
+"""Model substrate of the port: the LM of every family (training,
+prefill and decode).
 
 layers    — RMSNorm, linear maps, embedding, MLPs, RoPE, the activations
 attention — GQA attention with RoPE and causal / window masks; KV-cache
             decode
 moe       — the mixture-of-experts layer (router, dispatch, experts)
 ssm       — Mamba2, mLSTM and sLSTM, and their shared chunked core
-model     — ``init_params``, ``init_decode_state``, the decoder block and
-            ``DecoderLM``
+model     — ``init_params``, ``init_decode_state``, the decoder block,
+            ``DecoderLM`` and the training loss ``loss_fn``
 """
 
 from .model import DecoderLM, init_decode_state, init_params

@@ -27,8 +27,11 @@ its numerics:
   agree bit for bit wherever torch's ``exp`` and ``log1p`` agree with
   XLA's on the same operands (those differ by an ulp in places).
 
-Parameters do not require gradients: the port has no backward for its
-attention kernel yet.  The losses wait for the training slice.
+Parameters are made with ``requires_grad=False`` (:func:`frozen`), so
+prefill and decode build no graph; the training entry points
+(``launch/steps.py``) make them trainable.  The losses:
+:func:`softmax_xent`, and :func:`softmax_xent_chunked` against the tied
+table, which never holds the whole (B, S, V) logits.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -116,6 +120,30 @@ class Embedding(nn.Module):
         return x @ self.table.to(x.dtype).T
 
 
+def _no_posinf(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isposinf(t), torch.zeros_like(t), t)
+
+
+class _Softplus(torch.autograd.Function):
+    """``max(x, 0) + log1p(exp(-|x|))`` with ``jnp.logaddexp``'s own
+    derivative, ``exp(x - softplus(x))`` (+inf read as 0).  Autograd
+    through the written-out form gives 1 at x == 0 exactly (``max``'s tie
+    and ``|x|``'s kink) where the derivative is 1/2, and bf16 inputs land
+    there often."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+        out = torch.where(torch.isnan(x), x, out)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(_no_posinf(x) - _no_posinf(out))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each
     operation rounded to x's dtype, as the JAX package computes it."""
@@ -124,11 +152,11 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus(x)``, which is ``jnp.logaddexp(x, 0)``: ``max(x,
-    0) + log1p(exp(-|x|))`` op by op in x's dtype (NaN where x is NaN).
+    0) + log1p(exp(-|x|))`` op by op in x's dtype (NaN where x is NaN),
+    and its gradient as JAX takes it.
     ``torch.nn.functional.softplus`` is another formula: ``log1p(exp(x))``
     below its threshold 20, ``x`` above it."""
-    out = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
-    return torch.where(torch.isnan(x), x, out)
+    return _Softplus.apply(x)
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -193,3 +221,52 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in float32; logits (..., V), labels (...)
+    ints, ``mask`` (...) weights (the mean over its sum, at least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _xent_sum(table: torch.Tensor, x: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """The summed cross-entropy of one chunk: logits ``x @ table.T`` in
+    x's dtype, then float32."""
+    logits = (x @ table.to(x.dtype).T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.sum(lse - ll)
+
+
+def softmax_xent_chunked(table: torch.Tensor, x: torch.Tensor,
+                         labels: torch.Tensor,
+                         chunk: int = 256) -> torch.Tensor:
+    """Mean cross-entropy against a tied embedding table without holding
+    the full (B, S, V) logits.
+
+    x (B, S, D), labels (B, S).  The sequence goes in chunks of ``chunk``
+    positions, shrunk until it divides S (as the JAX package does); the
+    chunks' sums add in order from 0 and the total is divided by B * S.
+    Under grad mode each chunk runs under ``torch.utils.checkpoint``: its
+    logits are made again in the backward, so one chunk's logits are held
+    at a time (the JAX package's ``jax.checkpoint`` on its scan body).
+    """
+    b, s, _ = x.shape
+    c = chunk
+    while s % c:
+        c -= 1
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        args = (table, x[:, i:i + c], labels[:, i:i + c])
+        total = total + (checkpoint(_xent_sum, *args, use_reentrant=False)
+                         if remat else _xent_sum(*args))
+    return total / (b * s)

@@ -1,4 +1,4 @@
-"""The LM: init, decoder block, backbone, hidden, forward, decode.
+"""The LM: init, decoder block, backbone, hidden, forward, loss, decode.
 
 A port of every family of the JAX package's ``models/model.py``: the
 full-sequence forward (prefill) and one decode step against a KV cache
@@ -52,6 +52,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers, ssm
 from .attention import Attention, attention, attention_decode, init_kv_cache
@@ -226,34 +227,37 @@ class DecoderLM(nn.Module):
         x = x + sinusoidal(f, cfg.d_model, x.device).to(x.dtype)[None]
         pos = torch.arange(f, device=x.device).expand(x.shape[0], f)
         for block in self.enc_layers:
-            x, _ = block(cfg, x, pos, causal=False)
+            x, _ = _remat(cfg, block, cfg, x, pos, causal=False)
         return self.ln_enc(x)
 
     def backbone(self, cfg, x, positions, *, window=0, enc_out=None):
         """The layer stack over x (B, S, D) -> (x, aux); aux is the sum of
         the layers' router losses (0 outside the moe family).  The audio
         decoder attends to ``enc_out`` (B, F, D) and, as in the JAX
-        package, takes no window."""
+        package, takes no window.  Each block runs under
+        ``torch.utils.checkpoint`` where ``cfg.remat`` is set and the
+        activations require a gradient (:func:`_remat`)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "audio":
             b, f = enc_out.shape[:2]
             enc_pos = torch.arange(f, device=x.device).expand(b, f)
             for block, cross in zip(self.dec_layers, self.cross_layers):
-                x, _ = block(cfg, x, positions)
-                x = cross(cfg, x, positions, enc_out, enc_pos)
+                x, _ = _remat(cfg, block, cfg, x, positions)
+                x = _remat(cfg, cross, cfg, x, positions, enc_out, enc_pos)
         elif cfg.family == "ssm":
             for group, sl in zip(self.mlstm, self.slstm):
                 for ml in group:
-                    x = x + ml(cfg, x)[0]
-                x = x + sl(cfg, x)[0]
+                    x = x + _remat(cfg, ml, cfg, x)[0]
+                x = x + _remat(cfg, sl, cfg, x)[0]
         elif cfg.family == "hybrid":
             for group in self.mamba:
-                x, _ = self.shared_attn(cfg, x, positions, window=window)
+                x, _ = _remat(cfg, self.shared_attn, cfg, x, positions,
+                              window=window)
                 for mb in group:
-                    x = x + mb(cfg, x)[0]
+                    x = x + _remat(cfg, mb, cfg, x)[0]
         else:
             for block in self.layers:
-                x, a = block(cfg, x, positions, window=window)
+                x, a = _remat(cfg, block, cfg, x, positions, window=window)
                 if a is not None:
                     aux = aux + a
         return x, aux
@@ -347,6 +351,37 @@ class DecoderLM(nn.Module):
         x = self.decode_backbone(cfg, self.embed(tokens), state, pos,
                                  window=window)
         return self.logits(self.ln_f(x)), state
+
+
+def _remat(cfg, block, *args, **kw):
+    """``block(*args, **kw)``; under ``torch.utils.checkpoint`` (its
+    activations made again in the backward, the JAX package's
+    ``jax.checkpoint`` of a block) where ``cfg.remat`` is set, grad mode is
+    on and the block's input ``args[1]`` requires a gradient."""
+    if cfg.remat and torch.is_grad_enabled() and args[1].requires_grad:
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+    return block(*args, **kw)
+
+
+def loss_fn(model: DecoderLM, cfg, batch, *, window: int = 0,
+            dtype: torch.dtype = layers.COMPUTE_DTYPE):
+    """The training loss -> (loss + aux, (xent, aux)), 0-d float32 each.
+
+    The next-token cross-entropy of ``batch["tokens"]`` (the vlm family's
+    patches and the audio family's frames as in :meth:`DecoderLM.hidden`)
+    against the tied table through :func:`layers.softmax_xent_chunked`, or
+    the ``unembed`` logits; ``aux`` the moe family's router loss, with its
+    gradient (0 elsewhere).  Activations in ``dtype``: bf16 as in the JAX
+    package, float32 where a check wants no rounding between the layers.
+    """
+    x, aux = model.hidden(batch, cfg=cfg, window=window, dtype=dtype)
+    tokens = torch.as_tensor(batch["tokens"], device=x.device)
+    if model.unembed is None:
+        loss = layers.softmax_xent_chunked(model.embed.table, x[:, :-1],
+                                           tokens[:, 1:])
+    else:
+        loss = layers.softmax_xent(model.unembed(x)[:, :-1], tokens[:, 1:])
+    return loss + aux, (loss, aux)
 
 
 def init_params(cfg, *, generator: torch.Generator | None = None,

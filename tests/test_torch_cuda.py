@@ -1245,3 +1245,165 @@ def test_generate_zamba2_on_card(cuda):
     assert flash.launches == before
     assert run.tokens.device.type == "cuda" and run.tokens.shape == (2, 4)
     assert torch.equal(run.tokens[:, 0], run.last_logits[:, -1].argmax(-1))
+
+
+# --------------------------------------------------------------------------
+# LM training: the attention backward kernel and the train step
+# --------------------------------------------------------------------------
+
+BWD_MASKS = {"causal": dict(causal=True, window=0, kv_len=None),
+             "window": dict(causal=True, window=100, kv_len=None),
+             "ragged": dict(causal=False, window=0, kv_len=300),
+             "none": dict(causal=False, window=0, kv_len=None)}
+
+
+def _bwd_close(got, want, bound, dtype):
+    """The backward kernel against ``ref.attention_bwd_ref``: float32
+    within 2e-4 of the largest (and at least 1), bf16 within that plus one
+    bf16 step of the value plus ``ref.attention_bwd_rounding_bound`` (P
+    and dS rounded to bf16 as operands)."""
+    for name, g, w, bd in zip(("dq", "dk", "dv"), got, want, bound):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        w = w.float()
+        tol = 2e-4 * max(1.0, float(w.abs().max()))
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * w.abs() + bd
+        diff = (g.float() - w).abs()
+        assert bool((diff <= tol).all()), (
+            f"{name}: max_abs_err {float(diff.max())}, largest excess "
+            f"{float((diff - tol).max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", list(BWD_MASKS))
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_flash_bwd_kernel_matches_plain_version(cuda, d, mask):
+    """GQA 16:2 and MHA, float32 and bf16; sq 256 against sk 384 where
+    there is no mask (key-length bound 300 in ``ragged``); two launches a
+    call (``bwd_dq``, ``bwd_dkdv``) and the same bits on a second call."""
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    kw = BWD_MASKS[mask]
+    sk = 256 if kw["causal"] else 384
+    for dtype in (torch.float32, torch.bfloat16):
+        for hq, hkv in ((16, 2), (4, 4)):
+            q, k, v = _attn(gen, 1, hq, hkv, 256, d, dtype, sk=sk)
+            o = ref.attention_ref(q, k, v, **kw)
+            do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+            before = dict(flash.bwd_launches_by_kernel)
+            got = flash.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+            assert all(flash.bwd_launches_by_kernel[n] == before[n] + 1
+                       for n in flash.BWD_KERNELS)
+            _bwd_close(got, ref.attention_bwd_ref(q, k, v, o, do, **kw),
+                       ref.attention_bwd_rounding_bound(q, k, v, o, do, **kw),
+                       dtype)
+            again = flash.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_takes_the_callers_lse(cuda):
+    """Given the rows' log-sum-exp, the first kernel skips its own pass:
+    the same gradients within the bf16 contract."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = _attn(gen, 1, 4, 2, 256, 64, torch.bfloat16)
+    o = flash.flash_attention_cuda(q, k, v, causal=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").bfloat16()
+    s = (q.float().reshape(1, 2, 512, 64) @ k.float().transpose(-1, -2)) / 8
+    keep = torch.ones(256, 256, dtype=torch.bool, device="cuda").tril()
+    lse = torch.logsumexp(s.masked_fill(~keep.repeat(2, 1), float("-inf")),
+                          -1).reshape(1, 4, 256)
+    got = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal=True,
+                                         lse=lse)
+    _bwd_close(got, ref.attention_bwd_ref(q, k, v, o, do, causal=True),
+               ref.attention_bwd_rounding_bound(q, k, v, o, do, causal=True),
+               torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = _attn(gen, 1, 4, 2, 128, 64, torch.bfloat16)
+    o = flash.flash_attention_cuda(q, k, v)
+    before = flash.bwd_launches
+    for args, kw in [((q, k, v, o[:, :2].contiguous(), o), {}),   # o shape
+                     ((q, k, v, o, o.float()), {}),               # do dtype
+                     ((q, k, v, o.clone().requires_grad_(True), o), {}),
+                     ((q, k, v, o, o),
+                      dict(lse=torch.zeros(1, 4, 64, device="cuda")))]:
+        with pytest.raises(ValueError):
+            flash.flash_attention_bwd_cuda(*args, **kw)
+    assert flash.bwd_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_under_autograd_on_card(cuda, dtype):
+    """``ops.flash_attention`` with ``ragged`` at 1000 tokens: padded to
+    1024 outside the autograd function, one forward and one backward call
+    of the kernels, the gradients of the unpadded inputs against the
+    plain backward on the CPU given the same inputs and the kernel's own
+    output (``delta = rowsum(do * o)`` reads it)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = _attn(gen, 1, 8, 2, 1000, 64, dtype)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = flash.launches, flash.bwd_launches
+    out = ops.flash_attention(*leaves, causal=True, ragged=True)
+    out.backward(do)
+    assert (flash.launches - f0, flash.bwd_launches - b0) == (1, 1)
+    cpu = [t.detach().cpu().float() for t in (q, k, v)]
+    o = out.detach().cpu().float()
+    want = ref.attention_bwd_ref(*cpu, o, do.cpu().float(), causal=True)
+    bound = ref.attention_bwd_rounding_bound(*cpu, o, do.cpu().float(),
+                                             causal=True)
+    _bwd_close([t.grad.cpu() for t in leaves], [w.to(dtype) for w in want],
+               bound, dtype)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """One SMOKE internvl2-1b train step (2 layers, 16 patches + 240
+    tokens, ``pallas``: the flash kernels forward and backward) on the card
+    and on the CPU from the same float32 weights, float32 activations: the
+    loss and gnorm within 2e-4 relative, the moments within 2e-4 of each
+    leaf's largest, the parameters within 2 lr (a gradient near 0 may
+    take Adam's first step the other way) plus 2e-6."""
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config("internvl2-1b", smoke=True),
+                              attn_impl="pallas")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 240)),
+             "patches": torch.from_numpy(rng.normal(size=(
+                 2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))}
+    out = {}
+    for device in ("cuda", "cpu"):
+        model, state = init_train_state(
+            cfg, torch.Generator().manual_seed(0), opt, device="cpu")
+        model.to(device)
+        state = {"m": {n: t.to(device) for n, t in state["m"].items()},
+                 "v": {n: t.to(device) for n, t in state["v"].items()},
+                 "step": state["step"].to(device)}
+        f0, b0 = flash.launches, flash.bwd_launches
+        model, state, metrics = make_train_step(cfg, opt,
+                                                dtype=torch.float32)(
+            model, state, batch)
+        launches = (flash.launches - f0, flash.bwd_launches - b0)
+        out[device] = (model, state, metrics, launches)
+    # remat: the forward runs again in the backward, a launch a layer each
+    assert out["cuda"][3] == (2 * cfg.n_layers, cfg.n_layers)
+    assert out["cpu"][3] == (0, 0)
+    for key in ("loss", "gnorm"):
+        assert float(out["cuda"][2][key]) == pytest.approx(
+            float(out["cpu"][2][key]), rel=2e-4)
+    for (name, p), (_, want) in zip(out["cuda"][0].named_parameters(),
+                                    out["cpu"][0].named_parameters()):
+        diff = (p.detach().cpu() - want.detach()).abs().max()
+        assert float(diff) <= 2 * opt.lr + 2e-6, name
+        for part in ("m", "v"):
+            got, w = out["cuda"][1][part][name].cpu(), out["cpu"][1][part][
+                name]
+            assert float((got - w).abs().max()) <= 2e-4 * float(
+                w.abs().max()) + 1e-12, (part, name)
