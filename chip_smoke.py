@@ -10,10 +10,13 @@ Phases, each printing one JSON line:
 2. build   -- every CUDA kernel built from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together),
    timed as set-up; the Hopper flash kernel's registers, spills and any
-   ptxas warning about it (``-Xptxas -v``): one instance a head dim (32,
-   64, 80, 128), none spilling; and the ``HGMMA`` (wgmma)
-   and ``UTMALDG`` (TMA load) instructions in ``cuobjdump -sass`` of
-   ``libflash_attention.so``; the atomic instructions in the SASS of
+   ptxas warning about it (``-Xptxas -v``): two instances a head dim (32,
+   64, 80, 128), without and with the lse output, none spilling; every
+   attention backward instance (``bwd_dq_wgmma``, ``bwd_dkdv_wgmma`` a
+   head dim, ``bwd_dkdv_sum``, the float32 ``bwd_dq`` and ``bwd_dkdv``),
+   none spilling; the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load)
+   instructions in ``cuobjdump -sass`` of ``libflash_attention.so`` and
+   ``libflash_attention_bwd.so``; the atomic instructions in the SASS of
    ``libhist.so`` by kind (native ``ATOMS.ADD`` / ``REDG`` or a
    compare-and-swap loop, ``ATOMS.CAS*``, of which there must be none)
    (the SASS counts are null where ``cuobjdump`` is missing);
@@ -328,22 +331,30 @@ Phases, each printing one JSON line:
    launches inside ``encode_audio`` and ``CrossBlock.forward``), device
    time by group (``audio_encoder``, ``cross_attention``: the aten work
    inside them);
-42. attn_bwd_check -- the attention backward kernel
-   (``flash_attention_bwd_cuda``: ``bwd_dq`` then ``bwd_dkdv``) against
-   ``ref.attention_bwd_ref`` at every head dim (32, 64, 80, 128), float32
-   and bf16, causal, window, no mask with sq != sk, ragged ``kv_len``, GQA
-   16:2 and MHA, the moe prefill's shape, and q 1000 over K/V 1000 and
-   1500 through ``ops.flash_attention(..., ragged=True)`` under autograd:
-   float32 within 2e-4 of max(1, max|want|), bf16 within that plus one
-   bf16 step of the value plus ``ref.attention_bwd_rounding_bound``; a
-   second call the same bits;
+42. attn_bwd_check -- the attention backward kernels
+   (``flash_attention_bwd_cuda``: bf16 ``bwd_dq_wgmma``, ``bwd_dkdv_wgmma``
+   and, where a group's heads are split, ``bwd_dkdv_sum``; float32
+   ``bwd_dq`` then ``bwd_dkdv``) against ``ref.attention_bwd_ref`` at every
+   head dim (32, 64, 80, 128), float32 and bf16, causal, window, no mask
+   with sq != sk, ragged ``kv_len``, GQA 16:2 and MHA, the moe prefill's
+   shape, and q 1000 over K/V 1000 and 1500 through
+   ``ops.flash_attention(..., ragged=True)`` under autograd: float32
+   within 2e-4 of max(1, max|want|), bf16 within that plus one bf16 step
+   of the value plus ``ref.attention_bwd_rounding_bound``; a second call
+   the same bits; at every bf16 case the forward's lse (``with_lse``, the
+   training path) against ``ref.attention_lse`` within 2e-4 of max(1,
+   |want|), the rows that keep no key +inf in both, the forward's output
+   the same bits with and without it, and the backward given it the same
+   bits as without; groups split among the dK/dV work items (7:1, 16:2)
+   and not (MHA), each call's kernels counted, twice the same bits;
 43. attn_bwd_time -- the backward at internvl2-1b's training shape (q 2 x
    14 x 4352 x 64, k/v 2 x 2 heads) and glm4-9b's (q 1 x 32 x 4096 x
    128, k/v 2 heads), causal bf16: CUDA events beside the forward kernel,
    the plain version and the backward of
    ``F.scaled_dot_product_attention`` (``enable_gqa``; timed only, never
-   on the path), launches a call, and the bound (the five products'
-   operations, 2.5 times the forward's, at 989 TFLOP/s);
+   on the path), given the forward's lse as training gives it, launches a
+   call by kernel, the instances' registers, and the bound (the five
+   products' operations, 2.5 times the forward's, at 989 TFLOP/s);
 44. lm_train_check -- one ``make_train_step`` step of internvl2-1b at full
    width with 2 layers, float32 weights from a seed and float32
    activations, on the card and on the CPU: 2 x (256 patches + 256
@@ -2063,7 +2074,9 @@ def bwd_within(got, want, bound, dtype) -> tuple[bool, float, float]:
 
 def attn_bwd_check(gen) -> dict:
     """Phase attn_bwd_check: the backward kernel against its plain version
-    over the sweep; returns the worst error and share by variant."""
+    over the sweep; the bf16 forward's lse against ``ref.attention_lse``
+    and the backward given it; groups split among the dK/dV work items and
+    not; returns the worst error and share by variant."""
     from repro_torch.kernels import flash_attention as flash, ops, ref
     t_phase = time.perf_counter()
     cases = [(1, 4, 4, 128, 128, True, 0, None),
@@ -2077,6 +2090,8 @@ def attn_bwd_check(gen) -> dict:
     worst = {v: {"max_abs_err": 0.0, "share_of_tolerance": 0.0}
              for v in flash.BWD_VARIANTS}
     n, repeat, before = 0, True, flash.bwd_launches
+    lse_worst = {"max_abs_err": 0.0, "share_of_tolerance": 0.0,
+                 "inf_rows": 0, "cases": 0}
 
     def one(q, k, v, o, do, **mask):
         nonlocal n, repeat
@@ -2096,6 +2111,38 @@ def attn_bwd_check(gen) -> dict:
               f"max_abs_err {err}, share of tolerance {share}")
         return err, share
 
+    def lse_case(q, k, v, o, do, mask):
+        """The lse the forward writes (training's path): the output the
+        same bits as without it, lse within 2e-4 of max(1, |want|) of
+        ``ref.attention_lse`` with its +inf rows equal, and the backward
+        given it the same bits as the backward that gets it itself."""
+        o_lse, lse = flash.flash_attention_cuda(q, k, v, with_lse=True,
+                                                **mask)
+        want = ref.attention_lse(q, k, **mask)
+        inf = torch.isinf(want)
+        check(torch.equal(o_lse, o), f"the forward with lse gave another "
+              f"output: {tuple(q.shape)} {mask}")
+        check(torch.equal(torch.isinf(lse), inf) and bool(
+            (lse[inf] > 0).all()), f"the forward's lse is not +inf on the "
+              f"rows that keep no key: {tuple(q.shape)} {mask}")
+        if (~inf).any():
+            diff = (lse[~inf] - want[~inf]).abs()
+            share = float((diff / (ATTN_F32_TOL * want[~inf].abs().clamp(
+                min=1.0))).max())
+            check(share <= 1, f"the forward's lse off ref.attention_lse: "
+                  f"{tuple(q.shape)} {mask}, {float(diff.max())}")
+            lse_worst["max_abs_err"] = max(lse_worst["max_abs_err"],
+                                           float(diff.max()))
+            lse_worst["share_of_tolerance"] = max(
+                lse_worst["share_of_tolerance"], share)
+        lse_worst["inf_rows"] += int(inf.sum())
+        lse_worst["cases"] += 1
+        a = flash.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **mask)
+        b = flash.flash_attention_bwd_cuda(q, k, v, o, do, **mask)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"the backward given the forward's lse differs from the one "
+              f"that gets it itself: {tuple(q.shape)} {mask}")
+
     for b, hq, hkv, sq, sk, causal, window, kv_len in cases:
         for d in (32, 64, 80, 128):
             for dtype in (torch.float32, torch.bfloat16):
@@ -2109,6 +2156,8 @@ def attn_bwd_check(gen) -> dict:
                 do = torch.randn(o.shape, generator=gen,
                                  device="cuda").to(dtype)
                 one(q, k, v, o, do, **mask)
+                if dtype == torch.bfloat16:
+                    lse_case(q, k, v, o, do, mask)
     # the moe prefill's shape (MHA 16:16, d 128), bf16
     q, k, v = (torch.randn((2, 16, 4096, 128), generator=gen,
                            device="cuda").bfloat16() for _ in range(3))
@@ -2116,6 +2165,45 @@ def attn_bwd_check(gen) -> dict:
     do = torch.randn(o.shape, generator=gen, device="cuda").bfloat16()
     moe_err, moe_share = one(q, k, v, o, do, causal=True)
     del q, k, v, o, do
+    # groups split among the dK/dV work items (7:1, 16:2, their sums
+    # added by bwd_dkdv_sum) and not (MHA), causal bf16, given the
+    # forward's lse: each against the plain version, twice the same bits
+    groups = {}
+    sms = flash.sm_count(torch.device("cuda"))
+    for hq, hkv, s, d in ((7, 1, 1024, 64), (16, 2, 1024, 128),
+                          (4, 4, 512, 80)):
+        q = torch.randn((1, hq, s, d), generator=gen,
+                        device="cuda").bfloat16()
+        k, v = (torch.randn((1, hkv, s, d), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        o, lse = flash.flash_attention_cuda(q, k, v, causal=True,
+                                            with_lse=True)
+        do = torch.randn(o.shape, generator=gen, device="cuda").bfloat16()
+        counts = dict(flash.bwd_launches_by_kernel)
+        got = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal=True,
+                                             lse=lse)
+        launched = {name: flash.bwd_launches_by_kernel[name] - counts[name]
+                    for name in counts
+                    if flash.bwd_launches_by_kernel[name] != counts[name]}
+        ran = flash.bwd_kernels(q.dtype, 1, hq, hkv, s, sms)
+        check(launched == dict.fromkeys(ran, 1),
+              f"a {hq}:{hkv} backward call launched {launched}")
+        want = ref.attention_bwd_ref(q, k, v, o, do, causal=True)
+        bound = ref.attention_bwd_rounding_bound(q, k, v, o, do,
+                                                 causal=True)
+        ok, err, share = bwd_within(got, want, bound, q.dtype)
+        check(ok, f"a {hq}:{hkv} backward off its plain version: {err}")
+        again = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal=True,
+                                               lse=lse)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f"a {hq}:{hkv} backward gave other bits on a second "
+              f"call")
+        heads = flash.dkdv_heads_per_chunk(1, hq, hkv, s, sms)
+        groups[f"{hq}:{hkv}"] = dict(
+            q=[1, hq, s, d], heads_per_chunk=heads,
+            chunks=-(-(hq // hkv) // heads), kernels=launched,
+            max_abs_err=err, share_of_tolerance=share, deterministic=same)
+        del q, k, v, o, do, lse, got, again, want, bound
     # ragged lengths through ops.flash_attention under autograd: padded to
     # multiples of 128 outside the autograd function
     ragged = {}
@@ -2146,6 +2234,9 @@ def attn_bwd_check(gen) -> dict:
                           "bf16": "2e-4 * max(1, max|want|) + 2^-7 |want| "
                                   "+ ref.attention_bwd_rounding_bound"},
                by_variant=worst, ragged=ragged,
+               forward_lse=dict(lse_worst, tolerance="2e-4 * max(1, |want|)",
+                                against="ref.attention_lse"),
+               groups=groups,
                moe_shape=dict(q=[2, 16, 4096, 128], max_abs_err=moe_err,
                               share_of_tolerance=moe_share),
                bwd_launches=flash.bwd_launches - before,
@@ -2154,35 +2245,40 @@ def attn_bwd_check(gen) -> dict:
     return out
 
 
-def attn_bwd_time(gen, name: str, shape: tuple) -> dict:
-    """Phase attn_bwd_time at one training shape, causal bf16."""
+def attn_bwd_time(gen, name: str, shape: tuple, registers: dict) -> dict:
+    """Phase attn_bwd_time at one training shape, causal bf16, given the
+    forward's lse as the training step gives it."""
     from repro_torch.kernels import flash_attention as flash, ref
     t_phase = time.perf_counter()
     b, hq, hkv, s, d = shape
     q = torch.randn((b, hq, s, d), generator=gen, device="cuda").bfloat16()
     k, v = (torch.randn((b, hkv, s, d), generator=gen,
                         device="cuda").bfloat16() for _ in range(2))
-    o = flash.flash_attention_cuda(q, k, v, causal=True)
+    o, lse = flash.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
     do = torch.randn(o.shape, generator=gen, device="cuda").bfloat16()
     before = dict(flash.bwd_launches_by_kernel)
     calls = flash.bwd_launches
-    got = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal=True)
+    got = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal=True,
+                                         lse=lse)
     per_call = {n: flash.bwd_launches_by_kernel[n] - before[n]
-                for n in flash.BWD_KERNELS}
-    check(flash.bwd_launches - calls == 1 and all(
-        c == 1 for c in per_call.values()),
-        f"a backward call launched {per_call}")
+                for n in before if flash.bwd_launches_by_kernel[n]
+                != before[n]}
+    sms = flash.sm_count(q.device)
+    ran = flash.bwd_kernels(q.dtype, b, hq, hkv, s, sms)
+    check(flash.bwd_launches - calls == 1 and per_call
+          == dict.fromkeys(ran, 1), f"a backward call launched {per_call}")
     want = ref.attention_bwd_ref(q, k, v, o, do, causal=True)
     bound = ref.attention_bwd_rounding_bound(q, k, v, o, do, causal=True)
     ok, err, share = bwd_within(got, want, bound, torch.bfloat16)
     check(ok, f"attention backward at {name}'s shape off its plain "
           f"version: {err}")
     del want, bound
-    again = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal=True)
+    again = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal=True,
+                                           lse=lse)
     repeat = all(torch.equal(x, y) for x, y in zip(got, again))
     del got, again
     ms, issue_ms = cuda_ms(lambda: flash.flash_attention_bwd_cuda(
-        q, k, v, o, do, causal=True), iters=10, warmup=2)
+        q, k, v, o, do, causal=True, lse=lse), iters=10, warmup=2)
     forward_ms, _ = cuda_ms(lambda: flash.flash_attention_cuda(
         q, k, v, causal=True), iters=10, warmup=2)
     plain_ms, _ = cuda_ms(lambda: ref.attention_bwd_ref(
@@ -2201,7 +2297,12 @@ def attn_bwd_time(gen, name: str, shape: tuple) -> dict:
                library_over_kernel=library_ms / ms,
                tflops=flops / (ms * 1e-3) / 1e12, gflop=flops / 1e9,
                max_abs_err=err, share_of_tolerance=share,
-               deterministic=repeat, launches_per_call=per_call)
+               deterministic=repeat, launches_per_call=per_call,
+               heads_per_chunk=flash.dkdv_heads_per_chunk(b, hq, hkv, s,
+                                                          sms),
+               registers={n: registers.get(f"{n}_d{d}",
+                                           registers.get(n))
+                          for n in ran})
     emit("attn_bwd_time", kernel="flash_attention_bwd",
          variant=flash.bwd_variant(q.dtype), name=name,
          shape=dict(q=list(q.shape), kv=list(k.shape), causal=True,
@@ -2476,40 +2577,65 @@ def main() -> int:
     wgmma_ptxas = {k: v for k, v in ptxas["flash_attention"].items()
                    if "flash_kernel_wgmma" in k}
     flash_sass = sass_counts(_build.BUILD_DIR / "libflash_attention.so")
-    check(len(wgmma_ptxas) == len(flash.WGMMA_HEAD_DIMS),
-          f"ptxas reported {sorted(wgmma_ptxas)}, want one Hopper flash "
-          f"kernel a head dim of {flash.WGMMA_HEAD_DIMS}")
-    wgmma_regs = {f"d{d}": next(
-        ({"registers": v.get("registers"),
-          "spill_bytes": v.get("spill_stores", 0) + v.get("spill_loads", 0)}
-         for k, v in wgmma_ptxas.items()
-         if f"flash_kernel_wgmmaILi{d}E" in k), None)
-        for d in flash.WGMMA_HEAD_DIMS}
+    flash_bwd_sass = sass_counts(
+        _build.BUILD_DIR / "libflash_attention_bwd.so")
+    check(len(wgmma_ptxas) == 2 * len(flash.WGMMA_HEAD_DIMS),
+          f"ptxas reported {sorted(wgmma_ptxas)}, want two Hopper flash "
+          f"kernels (without and with lse) a head dim of "
+          f"{flash.WGMMA_HEAD_DIMS}")
+
+    def regs(report: dict, pattern: str) -> dict | None:
+        return next(({"registers": v.get("registers"),
+                      "spill_bytes": v.get("spill_stores", 0)
+                      + v.get("spill_loads", 0)}
+                     for k, v in report.items() if re.search(pattern, k)),
+                    None)
+    # the no-grad instance under d{d}, the one that also writes lse (the
+    # training forward) under d{d}_lse
+    wgmma_regs = {f"d{d}{tag}": regs(wgmma_ptxas,
+                                     f"flash_kernel_wgmmaILi{d}ELb{flag}E")
+                  for d in flash.WGMMA_HEAD_DIMS
+                  for tag, flag in (("", 0), ("_lse", 1))}
     check(all(r is not None and r["spill_bytes"] == 0
               for r in wgmma_regs.values()),
           f"a Hopper flash kernel spills or was not reported: {wgmma_regs}")
     check(flash_sass is None or all(flash_sass[op] > 0 for op in SASS_OPS),
           f"libflash_attention.so lacks wgmma or TMA instructions: "
           f"{flash_sass}")
+    check(flash_bwd_sass is None
+          or all(flash_bwd_sass[op] > 0 for op in SASS_OPS),
+          f"libflash_attention_bwd.so lacks wgmma or TMA instructions: "
+          f"{flash_bwd_sass}")
     hist_atomics = sass_atomics(_build.BUILD_DIR / "libhist.so")
     cas_loops = None if hist_atomics is None else sum(
         c for op, c in hist_atomics.items() if ".CAS" in op)
     check(not cas_loops, f"libhist.so adds with compare-and-swap loops: "
           f"{hist_atomics}")
-    bwd_regs = {f"{kind}_{dt}_d{d}": next(
-        ({"registers": v.get("registers"),
-          "spill_bytes": v.get("spill_stores", 0) + v.get("spill_loads", 0)}
-         for k, v in ptxas["flash_attention_bwd"].items()
-         if re.search(f"{kind}I{sym}Li{d}E", k)), None)
-        for kind in flash.BWD_KERNELS
-        for dt, sym in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
-        for d in flash.HEAD_DIMS}
+    # every backward instance: the bf16 variant's two kernels a head dim
+    # and its sum of the chunks, the float32 variant's two a head dim
+    bwd_ptxas = ptxas["flash_attention_bwd"]
+    bwd_regs = {f"{kind}_d{d}": regs(bwd_ptxas, f"{kind}ILi{d}E")
+                for kind in ("bwd_dq_wgmma", "bwd_dkdv_wgmma")
+                for d in flash.HEAD_DIMS}
+    bwd_regs["bwd_dkdv_sum"] = regs(bwd_ptxas, "bwd_dkdv_sum")
+    bwd_regs.update({f"{kind}_f32_d{d}": regs(bwd_ptxas, f"{kind}IfLi{d}E")
+                     for kind in flash.BWD_KERNELS["bwd_cuda_core_f32"]
+                     for d in flash.HEAD_DIMS})
     check(all(r is not None for r in bwd_regs.values()),
           f"ptxas did not report every backward instance: {bwd_regs}")
+    check(all(r["spill_bytes"] == 0 for r in bwd_regs.values()),
+          f"a backward instance spills: {bwd_regs}")
+    # ptxas serialises the wgmma of a loop it cannot pipeline (C7515,
+    # C7518: an accumulator written between issue and wait, a wait in a
+    # divergent path), which made the dK/dV kernel slower in a trial:
+    # none may
+    serialised = sorted(k for k, v in bwd_ptxas.items() if "wgmma" in k
+                        and any("serialized" in w for w in v["warnings"]))
+    check(not serialised, f"ptxas serialises the wgmma of {serialised}")
     emit("build", seconds=build_seconds, libraries=sorted(libs),
          ptxas=ptxas, flash_wgmma_registers=wgmma_regs,
          flash_bwd_registers=bwd_regs,
-         flash_sass_counts=flash_sass,
+         flash_sass_counts=flash_sass, flash_bwd_sass_counts=flash_bwd_sass,
          hist_sass_atomics=hist_atomics, hist_cas_loops=cas_loops,
          sass_note=None if flash_sass is not None else
          "cuobjdump not found: SASS not counted")
@@ -4223,7 +4349,7 @@ def main() -> int:
     # 42. attn_bwd_check, 43. attn_bwd_time -------------------------------
     gen = torch.Generator(device="cuda").manual_seed(21)
     bwd_check = attn_bwd_check(gen)
-    bwd_timing = {name: attn_bwd_time(gen, name, shape)
+    bwd_timing = {name: attn_bwd_time(gen, name, shape, bwd_regs)
                   for name, shape in BWD_SHAPES.items()}
     torch.cuda.empty_cache()
 
@@ -4408,9 +4534,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:70",
         "replaces_note": "its VJP: src/repro/models/attention.py:98 "
                          "(_flash_xla under jax.checkpoint)",
-        "variant": "bwd_mma_bf16",
+        "variant": "bwd_wgmma_bf16",
         "variants": {
-            f"bwd_mma_bf16_{name}": {
+            f"bwd_wgmma_bf16_{name}": {
                 "shape": dict(zip(("batch", "q_heads", "kv_heads", "seq",
                                    "head_dim"), BWD_SHAPES[name])), **t}
             for name, t in bwd_timing.items()},
@@ -4418,7 +4544,7 @@ def main() -> int:
         "launches": lm_train["backward_calls"],
         "launches_per_step": lm_train["flash_launches_per_step"][
             "backward_calls"],
-        "kernel_launches_per_call": len(flash.BWD_KERNELS),
+        "kernel_launches_per_call": vlm_bwd["launches_per_call"],
         "launches_by_path": {"lm_train": lm_train["backward_calls"]},
         "max_abs_err": vlm_bwd["max_abs_err"],
         "check_max_abs_err": bwd_check["by_variant"],

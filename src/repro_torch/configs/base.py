@@ -7,12 +7,15 @@ a config means the same thing to both packages.  Every
 <=4 experts) used by the CPU tests.
 
 In the port, ``attn_impl`` picks the attention path (see
-``models/attention.py``), and ``moe_groups`` and ``moe_dispatch`` the MoE
-layer's dispatch (``models/moe.py``).  The knobs that only shape a JAX
+``models/attention.py``), ``moe_groups`` and ``moe_dispatch`` the MoE
+layer's dispatch (``models/moe.py``), and ``remat`` checkpoints the
+blocks that the JAX package's ``_maybe_remat`` wraps
+(``models/model.py``, ``torch.utils.checkpoint``: their activations are
+made again in the backward).  The knobs that only shape a JAX
 compilation are accepted and have no effect here: ``causal_skip`` (the
 CUDA kernel always skips tiles wholly outside the causal band),
-``scan_layers``, ``scan_chunks``, ``remat``, ``seq_shard``,
-``train_microbatches`` and ``attn_chunk``.
+``scan_layers``, ``scan_chunks``, ``seq_shard``, ``train_microbatches``
+and ``attn_chunk``.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ the checkout.  Nothing is built when a module is imported: the first
 call to :func:`library` builds every source once per process, one
 ``nvcc`` per source, all started together.  A failed build raises.
 
-A library is keyed by a hash of its source and of :data:`NVCC_FLAGS`,
-written beside it in ``lib<name>.so.key``.  A process that finds a
+A library is keyed by a hash of its source, of the ``csrc/*.cuh``
+headers it includes (``hopper.cuh``, which both flash-attention sources
+include) and of :data:`NVCC_FLAGS`, written beside it in
+``lib<name>.so.key``.  A process that finds a
 library whose key matches loads it and runs no ``nvcc``: the ranks of a
 distributed fit load the build of the first of them (or of their
 parent), and so does a second run of the same checkout.  A changed source
@@ -33,6 +35,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,10 +62,27 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def _headers(src: Path) -> list[Path]:
+    """The headers of ``csrc`` that ``src`` includes (``#include
+    "name.cuh"``), and theirs, each once, in the order first included."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        text = todo.pop(0).read_text()
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            header = src.parent / name
+            if header.exists() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def source_key(src: Path) -> str:
-    """The hash a library built from ``src`` is kept under: its source and
-    the flags."""
+    """The hash a library built from ``src`` is kept under: its source, the
+    headers it includes and the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for header in _headers(src):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 

@@ -97,6 +97,13 @@
 //   ref.attention_rounding_bound doubles.  o = acc * (1 / l), within an
 //   ulp of acc / l, is rounded to bf16 at the end.  A row with one kept
 //   key gets p = 1 and o = v exactly.
+// - lse for the backward: the instance flash_kernel_wgmma<D, true> also
+//   writes each row's log-sum-exp of its kept scaled scores, natural log,
+//   from the final m (base 2) and l: lse = (m + log2 l) ln 2, +inf where
+//   l == 0; flash_attention_bwd.cu turns it back into base 2 as it reads
+//   it.  The template flag keeps it out of the no-grad instances.
+// - The mbarrier, TMA, descriptor and wgmma helpers and the tensor-map
+//   encoding are in hopper.cuh, shared with the backward.
 // - A wait on an mbarrier that lasts 4 s traps, so a broken pipeline
 //   fails the launch instead of holding the card (the consumers' wait for
 //   Q has no timeout; the producer's next wait then traps).
@@ -122,6 +129,8 @@
 #include <stdint.h>
 
 #include <utility>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -358,20 +367,12 @@ constexpr int kStages = 3;               // the K/V ring
 constexpr int kConsumers = 256;          // 2 consumer warpgroups
 constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
 
+// The forward's shared memory: Q, the K/V ring, the barriers.
 template <int D>
-struct Layout {
-  // Bytes of a swizzled shared-memory row; a TMA box is one column chunk
-  // of that many bytes across all rows of the tile, chunks one after the
-  // other.  The swizzle repeats every 8 rows (8 * kSwizzle bytes).  A
-  // head dim that is no multiple of the chunk ends in a part chunk, whose
-  // columns past d TMA fills with zeros: kDPad columns in shared memory.
-  static constexpr int kSwizzle = D % 64 == 0 ? 128 : 64;
-  static constexpr int kChunkCols = kSwizzle / 2;
-  static constexpr int kChunks = (D + kChunkCols - 1) / kChunkCols;
-  static constexpr int kDPad = kChunks * kChunkCols;
-  static constexpr int kStepsPerChunk = kSwizzle / 32;  // k16 steps a chunk
-  static constexpr int kQBytes = kBlockM * kDPad * 2;
-  static constexpr int kTileBytes = kBlockN * kDPad * 2;  // K or V a stage
+struct Smem {
+  using L = Layout<D>;
+  static constexpr int kQBytes = L::bytes(kBlockM);
+  static constexpr int kTileBytes = L::bytes(kBlockN);  // K or V a stage
   // full and empty a stage, Q's full and empty, the current work item
   static constexpr int kBarrierBytes = 8 * (2 * kStages + 3);
   // 1024 bytes of slack to align the tiles to the swizzle's period.
@@ -379,318 +380,12 @@ struct Layout {
       1024 + kQBytes + 2 * kStages * kTileBytes + kBarrierBytes;
 };
 
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool bar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, int v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ int ld_shared(uint32_t addr) {
-  int v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Returns once the phase of ``bar`` with this parity has completed.
-__device__ __forceinline__ void bar_spin(uint32_t bar, uint32_t parity) {
-  while (!bar_try_wait(bar, parity)) {
-  }
-}
-
-// The same, but a wait of more than 4 s can only be a broken pipeline:
-// it traps, so the launch fails (the wrapper's next synchronise reports
-// it) instead of holding the card.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  if (bar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!bar_try_wait(bar, parity))
-    if (global_ns() - t0 > 4000000000ull) __trap();
-}
-
-// One box of ``map`` at (column c0, row c1) into shared memory at ``dst``;
-// the bytes count against ``bar``'s transaction count.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(bar)
-      : "memory");
-}
-
-// wgmma's shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle mode (1 = 128 B, 2 = 64 B).
-template <int kSwizzle>
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  constexpr uint64_t mode = kSwizzle == 128 ? 1 : 2;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
-         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
-         | (mode << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
-#define ACC32(i) ACC16(i), ACC16(i + 16)
-#define REGS16 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define REGS32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define REGS48                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47}"
-#define REGS64                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-
-// The wgmma wrappers take a descriptor of the tile and the k16 step's
-// offset into it (16-byte units) as an immediate, and add the two inside
-// the asm: only the tiles' descriptors stay live, not one per step.
-
-// d (64 x 128, f32) = A B (+ d if accumulate): A and B from shared memory,
-// both K-major.
-template <int kOffA, int kOffB>
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      ".reg .b64 da, db;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "add.s64 da, %64, %67;\n"
-      "add.s64 db, %65, %68;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", da, db, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ACC32(0), ACC32(32)
-      : "l"(a), "l"(b), "r"(accumulate), "n"(kOffA), "n"(kOffB));
-}
-
-// d (64 x N, f32) += A B: A (64 x 16, bf16) from registers, B from shared
-// memory, MN-major (the transpose bit).
-template <int N, int kOffB>
-struct MmaRs;
-
-template <int kOffB>
-struct MmaRs<32, kOffB> {
-  __device__ __forceinline__ static void run(float (&d)[16], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint64_t b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        ".reg .b64 db;\n"
-        "setp.ne.b32 p, %21, 0;\n"
-        "add.s64 db, %20, %22;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REGS16
-        ", {%16, %17, %18, %19}, db, p, 1, 1, 1;\n"
-        "}\n"
-        : ACC16(0)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1), "n"(kOffB));
-  }
-};
-
-template <int kOffB>
-struct MmaRs<64, kOffB> {
-  __device__ __forceinline__ static void run(float (&d)[32], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint64_t b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        ".reg .b64 db;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "add.s64 db, %36, %38;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
-        ", {%32, %33, %34, %35}, db, p, 1, 1, 1;\n"
-        "}\n"
-        : ACC32(0)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1), "n"(kOffB));
-  }
-};
-
-template <int kOffB>
-struct MmaRs<96, kOffB> {
-  __device__ __forceinline__ static void run(float (&d)[48], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint64_t b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        ".reg .b64 db;\n"
-        "setp.ne.b32 p, %53, 0;\n"
-        "add.s64 db, %52, %54;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " REGS48
-        ", {%48, %49, %50, %51}, db, p, 1, 1, 1;\n"
-        "}\n"
-        : ACC32(0), ACC16(32)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1), "n"(kOffB));
-  }
-};
-
-template <int kOffB>
-struct MmaRs<128, kOffB> {
-  __device__ __forceinline__ static void run(float (&d)[64], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint64_t b) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        ".reg .b64 db;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "add.s64 db, %68, %70;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-        ", {%64, %65, %66, %67}, db, p, 1, 1, 1;\n"
-        "}\n"
-        : ACC32(0), ACC32(32)
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1), "n"(kOffB));
-  }
-};
-
-#undef ACC4
-#undef ACC16
-#undef ACC32
-#undef REGS16
-#undef REGS32
-#undef REGS48
-#undef REGS64
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
 }
 
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// 2^x by the SFU's ex2 alone: a result below 2^-126 flushes to 0, where
-// exp2f would scale its way to a subnormal.  p is at most 1 and such a
-// term is far below the 2^-9 of p's own rounding to bf16.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S (64 x 128 keys, f32) = Q K^T over d in k16 steps, from the
-// descriptors of the warpgroup's Q rows and of a K tile.  Q and K are
-// [chunk][rows][chunk columns], swizzled; a k16 step is 32 bytes into a
-// chunk's rows.
-template <int D>
-__host__ __device__ constexpr int qk_step_offset(int kk, int rows) {
-  using L = Layout<D>;
-  return ((kk / L::kStepsPerChunk) * rows * L::kSwizzle
-          + (kk % L::kStepsPerChunk) * 32) / 16;
-}
-
-template <int D, int... kK>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t q,
-                                         uint64_t k,
-                                         std::integer_sequence<int, kK...>) {
-  (mma_ss_n128<qk_step_offset<D>(kK, kBlockM),
-               qk_step_offset<D>(kK, kBlockN)>(s, q, k, kK > 0),
-   ...);
-}
-
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t q,
-                                         uint64_t k) {
-  issue_qk<D>(s, q, k, std::make_integer_sequence<int, D / 16>{});
-}
-
-// acc (64 x kDPad, f32) += P V over the tile's keys in k16 steps, from
-// the descriptor of a V tile: step kk reads keys 16kk .. 16kk + 15, V rows
-// 16kk on; column chunks of V lie kBlockN rows apart (the descriptor's
-// leading byte offset).
-template <int D, int... kK>
-__device__ __forceinline__ void issue_pv(
-    float (&acc)[Layout<D>::kDPad / 2], const uint32_t (&p)[32], uint64_t v,
-    std::integer_sequence<int, kK...>) {
-  // 16 rows a step, in the descriptor's 16-byte units
-  (MmaRs<Layout<D>::kDPad, (kK * Layout<D>::kSwizzle)>::run(
-       acc, p[4 * kK], p[4 * kK + 1], p[4 * kK + 2], p[4 * kK + 3], v),
-   ...);
-}
-
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[Layout<D>::kDPad / 2],
-                                         const uint32_t (&p)[32],
-                                         uint64_t v) {
-  issue_pv<D>(acc, p, v, std::make_integer_sequence<int, kBlockN / 16>{});
-}
-
-// Rounds the float32 p of a tile to bf16, into the A fragments of P V:
-// k16 step kk reads accumulator elements 8kk .. 8kk + 7, as they lie.
-__device__ __forceinline__ void pack_p(const float (&s)[64],
-                                       uint32_t (&p)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
 
 // Where a thread's accumulator elements lie in the tile.
@@ -832,25 +527,27 @@ __device__ __forceinline__ Work work_item(int item, int heads, int group,
 // (their K/V stay in L2) and finish together.  The K/V ring runs on
 // across items, and the next item's Q loads while this item's last
 // products and its output are still under way.
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int* __restrict__ next_item,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int* __restrict__ next_item,
                    int heads, int group, int q_heads, int kv_heads, int sq,
                    int sk, int kv_len, float scale_log2, int causal,
                    int window) {
   using L = Layout<D>;
+  using S = Smem<D>;
   constexpr int kSw = L::kSwizzle;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u)
       & ~1023u;
   const uint32_t s_q = base;                          // [chunk][128 rows]
-  const uint32_t s_k = s_q + L::kQBytes;              // [stage][chunk][rows]
-  const uint32_t s_v = s_k + kStages * L::kTileBytes;
-  const uint32_t bars = s_v + kStages * L::kTileBytes;
+  const uint32_t s_k = s_q + S::kQBytes;              // [stage][chunk][rows]
+  const uint32_t s_v = s_k + kStages * S::kTileBytes;
+  const uint32_t bars = s_v + kStages * S::kTileBytes;
   // full[stage] at bars + 8 stage, empty[stage] after them, then Q's
   // full and empty, then the block's current work item: the producer
   // writes it once Q is free (q_empty), the consumers read it once Q has
@@ -887,7 +584,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         }
         const Work w = work_item(item, heads, group, q_heads, kv_heads, sq,
                                  sk, kv_len, causal, window);
-        bar_expect_tx(q_full, L::kQBytes);
+        bar_expect_tx(q_full, S::kQBytes);
 #pragma unroll
         for (int c = 0; c < L::kChunks; ++c)
           tma_load(s_q + c * kBlockM * kSw, &tq, q_full, c * L::kChunkCols,
@@ -897,10 +594,10 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
           const uint32_t full = bars + 8 * st;
           // the first pass over the ring finds every stage empty
           bar_wait(bars + 8 * (kStages + st), ((g / kStages) & 1) ^ 1);
-          bar_expect_tx(full, 2 * L::kTileBytes);
+          bar_expect_tx(full, 2 * S::kTileBytes);
 #pragma unroll
           for (int c = 0; c < L::kChunks; ++c) {
-            const uint32_t off = st * L::kTileBytes + c * kBlockN * kSw;
+            const uint32_t off = st * S::kTileBytes + c * kBlockN * kSw;
             tma_load(s_k + off, &tk, full, c * L::kChunkCols,
                      w.kv_row + t * kBlockN);
             tma_load(s_v + off, &tv, full, c * L::kChunkCols,
@@ -927,7 +624,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     const uint64_t dq = descriptor<kSw>(s_q + wg * 64 * kSw, 16, 8 * kSw);
     const uint64_t dk = descriptor<kSw>(s_k, 16, 8 * kSw);
     const uint64_t dv = descriptor<kSw>(s_v, kBlockN * kSw, 8 * kSw);
-    constexpr int kTileDesc = L::kTileBytes >> 4;   // a stage, in the
+    constexpr int kTileDesc = S::kTileBytes >> 4;   // a stage, in the
                                                     // descriptor's units
     int g = 0;                                      // K/V tiles so far
     for (int j = 0;; ++j) {                         // items so far
@@ -958,13 +655,13 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       bar_wait(bars + 8 * st, (g / kStages) & 1);
       named_sync(my_turn);
       wgmma_fence();
-      issue_qk<D>(s, dq, dk + st * kTileDesc);
+      issue_ss<D, 128, kBlockM, kBlockN>(s, dq, dk + st * kTileDesc);
       wgmma_commit();
       named_arrive(other_turn);
       wgmma_wait<0>();
       fence_regs(s);
       sm.update(s, rows, w.k_begin, scale_log2, causal, window, kv_len);
-      pack_p(s, p);
+      pack_a(s, p);
 
       // Tile t: S_t = Q K_t^T and P_{t-1} V_{t-1} in one turn; the
       // softmax of S_t runs under this warpgroup's P V and the other
@@ -975,9 +672,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         bar_wait(bars + 8 * st, ((g + t) / kStages) & 1);
         named_sync(my_turn);
         wgmma_fence();
-        issue_qk<D>(s, dq, dk + st * kTileDesc);
+        issue_ss<D, 128, kBlockM, kBlockN>(s, dq, dk + st * kTileDesc);
         wgmma_commit();
-        issue_pv<D>(acc, p, dv + prev * kTileDesc);
+        issue_rs<D, kBlockN>(acc, p, dv + prev * kTileDesc);
         wgmma_commit();
         named_arrive(other_turn);
         wgmma_wait<1>();                   // S_t has landed
@@ -988,7 +685,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         fence_regs(acc);
         bar_arrive(bars + 8 * (kStages + prev));   // tile t-1 may refill
         sm.rescale(acc);
-        pack_p(s, p);
+        pack_a(s, p);
       }
       bar_arrive(q_empty);               // every S of this item has landed
       g += w.n_tiles;
@@ -996,7 +693,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       // The last tile's P V.
       named_sync(my_turn);
       wgmma_fence();
-      issue_pv<D>(acc, p, dv + st * kTileDesc);
+      issue_rs<D, kBlockN>(acc, p, dv + st * kTileDesc);
       wgmma_commit();
       named_arrive(other_turn);
       wgmma_wait<0>();
@@ -1011,6 +708,18 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int off = 1; off < 4; off <<= 1) {
         l0 += __shfl_xor_sync(0xffffffffu, l0, off);
         l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      if constexpr (kLse) {
+        // lse = ln(sum_j e^(s_ij scale)) = (m + log2 l) ln 2, m being the
+        // row max in the base-2 domain (p = 2^(s scale log2(e) - m));
+        // +inf where the row keeps no key (l == 0)
+        if ((lane & 3) == 0) {
+          float* lrow = lse + static_cast<size_t>(w.bh) * sq + rows.r0;
+          lrow[0] = l0 == 0.f ? INFINITY
+                              : (sm.m0 + log2f(l0)) * 0.6931471805599453f;
+          lrow[8] = l1 == 0.f ? INFINITY
+                              : (sm.m1 + log2f(l1)) * 0.6931471805599453f;
+        }
       }
       const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
       const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
@@ -1031,56 +740,11 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda.
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A 2-D map of a (rows, d) bf16 matrix whose box is one swizzled column
-// chunk of ``box_rows`` rows.  The map is d wide: a box that reaches past
-// column d (the last at d = 80) is filled with zeros there.
-template <int D>
-CUresult make_map(CUtensorMap* map, const void* ptr, uint64_t rows,
-                  int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), rows};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(Layout<D>::kChunkCols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Layout<D>::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                           : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 // Returns a cudaError_t, or -CUresult if a tensor map could not be built.
+// With ``lse`` (not null) the instance that also writes each row's
+// log-sum-exp runs; without it, the one that does not.
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int* next_item, int batch, int q_heads, int kv_heads, int sq,
            int sk, int kv_len, float scale, int causal, int window,
            cudaStream_t stream) {
@@ -1091,10 +755,11 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (r == CUDA_SUCCESS) r = make_map<D>(&tk, k, kv_rows, kBlockN);
   if (r == CUDA_SUCCESS) r = make_map<D>(&tv, v, kv_rows, kBlockN);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-  constexpr int smem = Layout<D>::kSmemBytes;
+  constexpr int smem = Smem<D>::kSmemBytes;
+  const auto kernel = lse != nullptr ? flash_kernel_wgmma<D, true>
+                                     : flash_kernel_wgmma<D, false>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // One block an SM (a block takes 225 KB of shared memory at d = 128),
   // each taking work items until none is left.  A
@@ -1102,19 +767,16 @@ int launch(const void* q, const void* k, const void* v, void* o,
   // blocks in flight read the K/V of a group or two of heads (zamba2's 64
   // heads hold 84 MB of K/V, more than the 50 MB of L2), and each group
   // ends with its lightest items.
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int sms = sm_count();
+  if (sms < 0) return -sms;
   const int heads = batch * q_heads;
   const int n_q = sq / kBlockM;
   const int blocks = min(heads * n_q, sms);
   const int group = max(1, blocks / n_q);
-  flash_kernel_wgmma<D><<<blocks, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), next_item, heads, group,
-      q_heads, kv_heads, sq, sk, kv_len, scale * 1.4426950408889634f, causal,
-      window);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, next_item, heads,
+      group, q_heads, kv_heads, sq, sk, kv_len, scale * 1.4426950408889634f,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1156,34 +818,30 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   }
 }
 
-// The Hopper kernel: bf16 at d in {32, 64, 80, 128}.  ``next_item``: one
-// int32 of device memory, 0 at the launch (the count of work items
-// taken).  A negative result is -CUresult of cuTensorMapEncodeTiled (no
-// launch).
+// The Hopper kernel: bf16 at d in {32, 64, 80, 128}.  ``lse``: null, or
+// (batch, q_heads, sq) float32 that receives each row's log-sum-exp of
+// its kept scaled scores (+inf where it keeps none), for the backward.
+// ``next_item``: one int32 of device memory, 0 at the launch (the count
+// of work items taken).  A negative result is -CUresult of
+// cuTensorMapEncodeTiled (no launch).
 extern "C" int flash_attention_wgmma(const void* q, const void* k,
-                                     const void* v, void* o, int* next_item,
-                                     int batch, int q_heads, int kv_heads,
-                                     int sq, int sk, int kv_len, int d,
-                                     float scale, int causal, int window,
-                                     void* stream) {
+                                     const void* v, void* o, float* lse,
+                                     int* next_item, int batch, int q_heads,
+                                     int kv_heads, int sq, int sk, int kv_len,
+                                     int d, float scale, int causal,
+                                     int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32:
-      return hopper::launch<32>(q, k, v, o, next_item, batch, q_heads,
-                                kv_heads, sq, sk, kv_len, scale, causal,
-                                window, s);
-    case 64:
-      return hopper::launch<64>(q, k, v, o, next_item, batch, q_heads,
-                                kv_heads, sq, sk, kv_len, scale, causal,
-                                window, s);
-    case 80:
-      return hopper::launch<80>(q, k, v, o, next_item, batch, q_heads,
-                                kv_heads, sq, sk, kv_len, scale, causal,
-                                window, s);
-    case 128:
-      return hopper::launch<128>(q, k, v, o, next_item, batch, q_heads,
-                                 kv_heads, sq, sk, kv_len, scale, causal,
-                                 window, s);
+#define REPRO_FWD_CASE(DIM)                                                \
+  case DIM:                                                                \
+    return hopper::launch<DIM>(q, k, v, o, lse, next_item, batch, q_heads, \
+                               kv_heads, sq, sk, kv_len, scale, causal,    \
+                               window, s);
+    REPRO_FWD_CASE(32)
+    REPRO_FWD_CASE(64)
+    REPRO_FWD_CASE(80)
+    REPRO_FWD_CASE(128)
+#undef REPRO_FWD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -18,13 +18,15 @@ kernel raises; no call is retried on the other.
 
 ``launches`` counts the kernel launches of this process,
 ``launches_by_variant`` the same launches by kernel.  ``bwd_launches``
-counts the calls of the backward (two kernel launches each, counted by
-kernel in ``bwd_launches_by_kernel``).
+counts the calls of the backward, ``bwd_launches_by_kernel`` their
+kernel launches by kernel: each call adds one to each kernel of its
+variant (:data:`BWD_KERNELS`) that it launches (:func:`bwd_kernels`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -47,12 +49,21 @@ VARIANTS = ("wgmma_bf16", "cuda_core_f32")
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
-# the backward: bf16 on the tensor cores (mma.sync), float32 on the CUDA
-# cores, each as two kernels, bwd_dq (with lse and delta) then bwd_dkdv
-BWD_VARIANTS = ("bwd_mma_bf16", "bwd_cuda_core_f32")
-BWD_KERNELS = ("bwd_dq", "bwd_dkdv")
+# The backward, by dtype.  bf16 on the tensor cores (wgmma, TMA, lse from
+# the forward): bwd_dq_wgmma (with delta), bwd_dkdv_wgmma, and where a
+# group's query heads are split among the dK/dV work items bwd_dkdv_sum,
+# which adds the chunks' float32 sums.  float32 on the CUDA cores: bwd_dq
+# (with lse, unless given, and delta) then bwd_dkdv.
+BWD_VARIANTS = ("bwd_wgmma_bf16", "bwd_cuda_core_f32")
+BWD_KERNELS = {"bwd_wgmma_bf16": ("bwd_dq_wgmma", "bwd_dkdv_wgmma",
+                                  "bwd_dkdv_sum"),
+               "bwd_cuda_core_f32": ("bwd_dq", "bwd_dkdv")}
 bwd_launches = 0
-bwd_launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)
+bwd_launches_by_kernel = dict.fromkeys(
+    [name for names in BWD_KERNELS.values() for name in names], 0)
+DKDV_KEYS = 64          # keys a dK/dV work item of the bf16 kernel
+ITEMS_PER_SM = 4        # dK/dV work items an SM at least, where they split
+H100_SMS = 132
 
 _fns: dict = {}
 _bwd_fns: dict = {}
@@ -66,12 +77,13 @@ def variant(dtype: torch.dtype, d: int) -> str:
 
 def _kernel(name: str):
     """The C entry of a variant: ``flash_attention_wgmma`` (bf16), which
-    also takes the kernel's work-item count after the output, or
-    ``flash_attention`` (the CUDA-core kernel, float32)."""
+    also takes the lse output (or null) and the kernel's work-item count
+    after the output, or ``flash_attention`` (the CUDA-core kernel,
+    float32)."""
     if not _fns:
         lib = _build.library("flash_attention")
         for variant_name, entry, pointers in (
-                ("wgmma_bf16", "flash_attention_wgmma", 5),
+                ("wgmma_bf16", "flash_attention_wgmma", 6),
                 ("cuda_core_f32", "flash_attention", 4)):
             fn = getattr(lib, entry)
             fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 7
@@ -84,22 +96,69 @@ def _kernel(name: str):
 
 def bwd_variant(dtype: torch.dtype) -> str:
     """The backward's kernels for a call of this dtype."""
-    return "bwd_mma_bf16" if dtype == torch.bfloat16 else "bwd_cuda_core_f32"
+    return ("bwd_wgmma_bf16" if dtype == torch.bfloat16
+            else "bwd_cuda_core_f32")
+
+
+def dkdv_heads_per_chunk(batch: int, q_heads: int, kv_heads: int, sk: int,
+                         sms: int = H100_SMS) -> int:
+    """The query heads of a group that one dK/dV work item of the bf16
+    backward sums over.
+
+    An item is (batch, kv head, 64-key tile, chunk of the group's query
+    heads).  The whole group where that already makes ``ITEMS_PER_SM *
+    sms`` items (no split, no scratch); else the group in the fewest
+    chunks of about equal size that reach that many.  internvl2-1b's
+    training shape (2 x 2 kv heads of 7, 68 key tiles: 272 items whole)
+    gets 4 heads a chunk (chunks of 4 and 3, 544 items), glm4-9b's (1 x 2
+    of 16, 64 tiles: 128) 3 (six chunks, the last of 1 head: 768 items).
+    """
+    g = q_heads // kv_heads
+    base = batch * kv_heads * (sk // DKDV_KEYS)
+    target = ITEMS_PER_SM * sms
+    if base >= target:
+        return g
+    heads = math.ceil(g / min(g, math.ceil(target / base)))
+    while heads > 1 and base * math.ceil(g / heads) < target:
+        heads -= 1
+    return heads
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def bwd_kernels(dtype: torch.dtype, batch: int, q_heads: int, kv_heads: int,
+                sk: int, sms: int = H100_SMS) -> tuple:
+    """The kernels that one backward call of this dtype and shape launches:
+    the float32 variant's two; the bf16 variant's dQ and dK/dV kernels,
+    and its sum of the chunks where :func:`dkdv_heads_per_chunk` splits a
+    group."""
+    kernels = BWD_KERNELS[bwd_variant(dtype)]
+    if dtype != torch.bfloat16:
+        return kernels
+    split = dkdv_heads_per_chunk(batch, q_heads, kv_heads, sk, sms) < (
+        q_heads // kv_heads)
+    return kernels if split else kernels[:2]
 
 
 def _bwd_kernel(name: str):
     """The C entry of a backward variant."""
     if not _bwd_fns:
         lib = _build.library("flash_attention_bwd")
-        for variant_name, entry in (
-                ("bwd_mma_bf16", "flash_attention_bwd_bf16"),
-                ("bwd_cuda_core_f32", "flash_attention_bwd_f32")):
-            fn = getattr(lib, entry)
-            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                           + [ctypes.c_float] + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p])
+        fn = lib.flash_attention_bwd_wgmma
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        _bwd_fns["bwd_wgmma_bf16"] = fn
+        fn = lib.flash_attention_bwd_f32
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        _bwd_fns["bwd_cuda_core_f32"] = fn
+        for fn in _bwd_fns.values():
             fn.restype = ctypes.c_int
-            _bwd_fns[variant_name] = fn
     return _bwd_fns[name]
 
 
@@ -154,7 +213,7 @@ def _check(q, k, v, window, kv_len, name="flash_attention_cuda"):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         kv_len: int | None = None) -> torch.Tensor:
+                         kv_len: int | None = None, with_lse: bool = False):
     """Blockwise attention in one launch of the kernel :func:`variant`
     picks.
 
@@ -165,7 +224,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous on one CUDA device, all float32 or all bfloat16; ``d`` in
     :data:`HEAD_DIMS`; ``sq`` and ``sk`` multiples of 128; ``kv_len`` (1
     to ``sk``, default ``sk``) the keys attended to, the rest padding.
-    Returns (batch, q_heads, sq, d) in q's dtype.
+    Returns (batch, q_heads, sq, d) in q's dtype; with ``with_lse`` (bf16
+    only: the Hopper kernel's instance that writes it) also (batch,
+    q_heads, sq) float32, each row's log-sum-exp of its kept scaled scores
+    (``ref.attention_lse``, +inf where a row keeps no key), which
+    :func:`flash_attention_bwd_cuda` takes.  The output is the same bits
+    either way.
     """
     global launches
     _check(q, k, v, window, kv_len)
@@ -173,17 +237,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, sk = k.shape[1], k.shape[2]
     kv_len = sk if kv_len is None else kv_len
     check_attention_lengths(sq, sk, causal=causal, window=window)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     name = variant(q.dtype, d)
+    if with_lse and name != "wgmma_bf16":
+        raise ValueError("flash_attention_cuda: with_lse takes bf16 inputs "
+                         "(the Hopper kernel); the float32 kernel writes no "
+                         "lse")
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return (out, lse) if with_lse else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if name == "wgmma_bf16":
         # the persistent kernel's count of work items taken, from 0 (freed
         # on return: the allocator reuses it only behind this stream's work)
         next_item = torch.zeros(1, dtype=torch.int32, device=q.device)
-        ptrs += (next_item.data_ptr(),)
+        ptrs += (None if lse is None else lse.data_ptr(),
+                 next_item.data_ptr())
     dims = (b, hq, hkv, sq, sk, kv_len, d, 1.0 / d ** 0.5, int(causal),
             int(window), stream)
     with torch.cuda.device(q.device):
@@ -196,7 +267,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"cudaError_t {err}")
     launches += 1
     launches_by_variant[name] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -207,19 +278,20 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The gradients (dq, dk, dv) of :func:`flash_attention_cuda`'s output
-    ``o`` against ``do``, in two kernel launches (``bwd_dq``, then
-    ``bwd_dkdv``).
+    ``o`` against ``do``, by the kernels of :func:`bwd_variant`.
 
     q, k, v and the mask as :func:`flash_attention_cuda` takes them; ``o``
     its output and ``do`` the output's gradient, both shaped like q, in
     q's dtype, contiguous.  ``lse`` (batch, q_heads, sq) float32, the rows'
-    log-sum-exp of the kept scaled scores (+inf where a row keeps none), if
-    the caller has it; by default the first kernel computes it.  dq, dk,
-    dv come in the inputs' dtype: float32 within float32 rounding of
-    ``ref.attention_bwd_ref``; bf16 within ``ref.
-    attention_bwd_rounding_bound`` (P and dS rounded to bf16 as operands)
-    and one rounding of the result.  dk and dv sum over the query heads of
-    a group.  The same inputs give the same bits: no float atomics.
+    log-sum-exp of the kept scaled scores (+inf where a row keeps none),
+    as ``flash_attention_cuda(..., with_lse=True)`` gives it.  Without it,
+    the bf16 call runs that forward for it (one more forward launch) and
+    the float32 call's first kernel computes it.  dq, dk, dv come in the
+    inputs' dtype: float32 within float32 rounding of ``ref.
+    attention_bwd_ref``; bf16 within ``ref.attention_bwd_rounding_bound``
+    (P and dS rounded to bf16 as operands) and one rounding of the result.
+    dk and dv sum over the query heads of a group.  The same inputs give
+    the same bits: no float atomics.
     """
     global bwd_launches
     name = "flash_attention_bwd_cuda"
@@ -231,30 +303,65 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              f"match q {tuple(q.shape)} {q.dtype}")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    kv_len = sk if kv_len is None else kv_len
+    if lse is not None and (lse.shape != (b, hq, sq)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device):
+        raise ValueError(f"{name}: lse must be ({b}, {hq}, {sq}) float32 on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype}")
     check_attention_lengths(sq, sk, causal=causal, window=window)
+    mask = dict(causal=causal, window=window, kv_len=kv_len)
+    kv_len = sk if kv_len is None else kv_len
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    stats = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
-    if lse is not None:
-        if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
-            raise ValueError(f"{name}: lse must be ({b}, {hq}, {sq}) "
-                             f"float32, got {tuple(lse.shape)} {lse.dtype}")
-        stats[0].copy_(lse)
     variant_name = bwd_variant(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    dims = (b, hq, hkv, sq, sk, kv_len, d, 1.0 / d ** 0.5, int(causal),
-            int(window), int(lse is not None), stream)
+    scale = 1.0 / d ** 0.5
+    if variant_name == "bwd_wgmma_bf16":
+        if lse is None:
+            _, lse = flash_attention_cuda(q, k, v, with_lse=True, **mask)
+        lse = lse.contiguous()
+        if lse.data_ptr() % 16:
+            lse = lse.clone()
+        sms = sm_count(q.device)
+        heads = dkdv_heads_per_chunk(b, hq, hkv, sk, sms)
+        chunks = math.ceil(hq // hkv / heads)
+        # the chunks' float32 dK and dV sums where a group is split
+        parts = (torch.empty((2, chunks, b, hkv, sk, d), dtype=torch.float32,
+                             device=q.device) if chunks > 1 else None)
+        delta = torch.empty((b, hq, sq), dtype=torch.float32,
+                            device=q.device)
+        # the two kernels' counts of work items taken, from 0
+        next_items = torch.zeros(2, dtype=torch.int32, device=q.device)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                None if parts is None else parts[0].data_ptr(),
+                None if parts is None else parts[1].data_ptr(),
+                next_items.data_ptr())
+        dims = (b, hq, hkv, sq, sk, kv_len, d, scale, int(causal),
+                int(window), heads, stream)
+        kernels = bwd_kernels(q.dtype, b, hq, hkv, sk, sms)
+    else:
+        stats = torch.empty((2, b, hq, sq), dtype=torch.float32,
+                            device=q.device)
+        if lse is not None:
+            stats[0].copy_(lse)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        dims = (b, hq, hkv, sq, sk, kv_len, d, scale, int(causal),
+                int(window), int(lse is not None), stream)
+        kernels = BWD_KERNELS[variant_name]
     with torch.cuda.device(q.device):
         err = _bwd_kernel(variant_name)(*ptrs, *dims)
+    if err < 0:
+        raise RuntimeError(f"flash_attention_bwd ({variant_name}): "
+                           f"cuTensorMapEncodeTiled failed, CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd ({variant_name}) kernel "
                            f"launch failed: cudaError_t {err}")
     bwd_launches += 1
-    for kernel_name in BWD_KERNELS:
+    for kernel_name in kernels:
         bwd_launches_by_kernel[kernel_name] += 1
     return dq, dk, dv

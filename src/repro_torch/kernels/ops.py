@@ -322,27 +322,34 @@ class FlashAttention(torch.autograd.Function):
     (``flash_attention_cuda``) and the backward kernel
     (``flash_attention_bwd_cuda``), each given detached tensors; on a CPU
     tensor ``ref.attention_ref`` and ``ref.attention_bwd_ref``.  Nothing
-    falls back from one to the other.  Saves q, k, v and the output."""
+    falls back from one to the other.  Saves q, k, v and the output, and
+    on the card's bf16 path the rows' log-sum-exp that the forward kernel
+    writes beside it, which the backward reads instead of computing it
+    again."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kv_len):
         q, k, v = (t.detach() for t in (q, k, v))
         mask = dict(causal=causal, window=window, kv_len=kv_len)
-        if q.device.type == "cuda":
-            out = flash_kernel.flash_attention_cuda(q, k, v, **mask)
-        else:
+        lse = None
+        if q.device.type != "cuda":
             out = ref.attention_ref(q, k, v, **mask)
-        ctx.save_for_backward(q, k, v, out)
+        elif q.dtype == torch.bfloat16:
+            out, lse = flash_kernel.flash_attention_cuda(q, k, v, **mask,
+                                                         with_lse=True)
+        else:
+            out = flash_kernel.flash_attention_cuda(q, k, v, **mask)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = mask
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         out, do = out.detach(), do.detach()    # the saved output is tracked
         if q.device.type == "cuda":
             grads = flash_kernel.flash_attention_bwd_cuda(
-                q, k, v, out, do.contiguous(), **ctx.mask)
+                q, k, v, out, do.contiguous(), lse=lse, **ctx.mask)
         else:
             grads = ref.attention_bwd_ref(q, k, v, out, do, **ctx.mask)
         return (*grads, None, None, None)

@@ -572,25 +572,59 @@ def _attention_mask(sq: int, sk: int, *, causal: bool, window: int,
     return mask
 
 
-def _attention_bwd_parts(q, k, v, o, do, *, causal, window, kv_len):
-    """The float32 pieces of the attention gradient, grouped as (b, hkv,
-    g * sq, ...): P, dS, and q, k, do as float32."""
+def _grouped_scores(q, k, *, causal, window, kv_len):
+    """The scaled scores grouped as (b, hkv, g * sq, sk) in float32, the
+    masked ones at -inf."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     check_attention_lengths(sq, sk, causal=causal, window=window)
     if hq % hkv:
         raise ValueError(f"q_heads {hq} is not a multiple of kv_heads {hkv}")
     g = hq // hkv
+    mask = _attention_mask(sq, sk, causal=causal, window=window,
+                           kv_len=kv_len, device=q.device).repeat(g, 1)
+    s = (q.float().reshape(b, hkv, g * sq, d)
+         @ k.float().transpose(-1, -2)) / (d ** 0.5)
+    return s.masked_fill_(~mask, float("-inf"))
+
+
+def _grouped_lse(s):
+    """The rows' log-sum-exp of grouped scores, (..., 1), +inf for a row
+    that keeps no key (so that its p is 0)."""
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    return lse.masked_fill_(torch.isinf(lse), float("inf"))
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: int = 0, kv_len: int | None = None) -> torch.Tensor:
+    """The rows' log-sum-exp of the kept scaled scores of
+    :func:`attention_ref`, in float32: the plain version of what the bf16
+    forward kernel writes for the backward (``flash_attention_cuda(...,
+    with_lse=True)``).  +inf for a row that keeps no key.
+
+    Returns:
+      (batch, q_heads, sq) float32.
+    """
+    b, hq, sq, _ = q.shape
+    s = _grouped_scores(q, k, causal=causal, window=window, kv_len=kv_len)
+    return _grouped_lse(s).reshape(b, hq, sq)
+
+
+def _attention_bwd_parts(q, k, v, o, do, *, causal, window, kv_len,
+                         lse=None):
+    """The float32 pieces of the attention gradient, grouped as (b, hkv,
+    g * sq, ...): P, dS, and q, k, do as float32.  ``lse`` (b, hq, sq),
+    as :func:`attention_lse` gives it, or computed here the same way."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // max(hkv, 1)
+    s = _grouped_scores(q, k, causal=causal, window=window, kv_len=kv_len)
     qf = q.float().reshape(b, hkv, g * sq, d)
     kf, vf = k.float(), v.float()
     dof = do.float().reshape(b, hkv, g * sq, d)
-    mask = _attention_mask(sq, sk, causal=causal, window=window,
-                           kv_len=kv_len, device=q.device).repeat(g, 1)
-    s = (qf @ kf.transpose(-1, -2)) / (d ** 0.5)
-    s = s.masked_fill_(~mask, float("-inf"))
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    # a row that keeps no key: lse = -inf, and its p is 0
-    p = torch.exp(s.sub_(lse.masked_fill_(torch.isinf(lse), float("inf"))))
+    lse = (_grouped_lse(s) if lse is None
+           else lse.float().reshape(b, hkv, g * sq, 1))
+    p = torch.exp(s.sub_(lse))
     del s
     delta = (do.float() * o.float()).sum(-1).reshape(b, hkv, g * sq, 1)
     ds = p * (dof @ vf.transpose(-1, -2) - delta)
@@ -600,7 +634,8 @@ def _attention_bwd_parts(q, k, v, o, do, *, causal, window, kv_len):
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
-                      kv_len: int | None = None):
+                      kv_len: int | None = None,
+                      lse: torch.Tensor | None = None):
     """The gradients (dq, dk, dv) of :func:`attention_ref` against the
     output's gradient ``do``, explicit and unfused, in float32.
 
@@ -609,12 +644,15 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``d ** 0.5``), ``delta = rowsum(do * o)`` with ``o`` the forward's
     output as given, ``dS = P * (do V^T - delta)``, ``dv = P^T do``, ``dk =
     dS^T q / sqrt(d)``, ``dq = dS K / sqrt(d)``; GQA's dk and dv sum over
-    the query heads of a group.  A row that keeps no key has zero
+    the query heads of a group.  ``lse`` (batch, q_heads, sq), the rows'
+    log-sum-exp as :func:`attention_lse` gives it (the same bits as
+    without it), else computed here.  A row that keeps no key has zero
     gradients.  Returns each in its input's dtype.
     """
     b, hq, sq, d = q.shape
     p, ds, qf, kf, dof = _attention_bwd_parts(
-        q, k, v, o, do, causal=causal, window=window, kv_len=kv_len)
+        q, k, v, o, do, causal=causal, window=window, kv_len=kv_len,
+        lse=lse)
     dv = p.transpose(-1, -2) @ dof
     del p
     dk = (ds.transpose(-1, -2) @ qf) / (d ** 0.5)

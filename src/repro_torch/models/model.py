@@ -236,23 +236,26 @@ class DecoderLM(nn.Module):
         decoder attends to ``enc_out`` (B, F, D) and, as in the JAX
         package, takes no window.  Each block runs under
         ``torch.utils.checkpoint`` where ``cfg.remat`` is set and the
-        activations require a gradient (:func:`_remat`)."""
+        activations require a gradient (:func:`_remat`), where the JAX
+        package's ``_maybe_remat`` wraps one: each dense, vlm and moe
+        block, each audio encoder block and decoder layer (its block and
+        cross-attention together), the mLSTM and Mamba2 layers; not the
+        sLSTM layer nor zamba2's shared attention block."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "audio":
             b, f = enc_out.shape[:2]
             enc_pos = torch.arange(f, device=x.device).expand(b, f)
             for block, cross in zip(self.dec_layers, self.cross_layers):
-                x, _ = _remat(cfg, block, cfg, x, positions)
-                x = _remat(cfg, cross, cfg, x, positions, enc_out, enc_pos)
+                x = _remat(cfg, _audio_layer, cfg, x, positions, enc_out,
+                           enc_pos, block, cross)
         elif cfg.family == "ssm":
             for group, sl in zip(self.mlstm, self.slstm):
                 for ml in group:
                     x = x + _remat(cfg, ml, cfg, x)[0]
-                x = x + _remat(cfg, sl, cfg, x)[0]
+                x = x + sl(cfg, x)[0]
         elif cfg.family == "hybrid":
             for group in self.mamba:
-                x, _ = _remat(cfg, self.shared_attn, cfg, x, positions,
-                              window=window)
+                x, _ = self.shared_attn(cfg, x, positions, window=window)
                 for mb in group:
                     x = x + _remat(cfg, mb, cfg, x)[0]
         else:
@@ -351,6 +354,12 @@ class DecoderLM(nn.Module):
         x = self.decode_backbone(cfg, self.embed(tokens), state, pos,
                                  window=window)
         return self.logits(self.ln_f(x)), state
+
+
+def _audio_layer(cfg, x, positions, enc_out, enc_pos, block, cross):
+    """An audio decoder layer: its block, then its cross-attention."""
+    x, _ = block(cfg, x, positions)
+    return cross(cfg, x, positions, enc_out, enc_pos)
 
 
 def _remat(cfg, block, *args, **kw):

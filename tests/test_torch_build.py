@@ -4,7 +4,8 @@
 ``NVCC_FLAGS``.  Here a stand-in for ``nvcc`` (a script that records its
 calls and links an empty shared library with the host's C compiler) shows
 that a second build of the same sources runs no compiler, that a changed
-source or flag rebuilds, and that a failed build still raises.
+source, included header or flag rebuilds, and that a failed build still
+raises.
 """
 
 import shutil
@@ -78,3 +79,23 @@ def test_a_failed_build_raises_and_keeps_no_key(fake_build):
     assert not (_build.BUILD_DIR / "libbeta.so.key").exists()
     (csrc / "beta.cu").write_text("// beta\n")
     assert build() == 1          # alpha was kept
+
+
+def test_a_changed_header_rebuilds_the_sources_that_include_it(fake_build):
+    """``alpha.cu`` includes ``common.cuh``, which includes ``inner.cuh``;
+    ``beta.cu`` includes neither: a changed header rebuilds alpha alone, an
+    unchanged one nothing."""
+    csrc, build = fake_build
+    (csrc / "alpha.cu").write_text('// alpha\n#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text('// common\n#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("// inner\n")
+    assert build() == 2
+    assert build() == 0
+    (csrc / "common.cuh").write_text('// common, changed\n'
+                                     '#include "inner.cuh"\n')
+    assert build() == 1
+    (csrc / "inner.cuh").write_text("// inner, changed\n")
+    assert build() == 1
+    assert build() == 0
+    assert sorted(p.name for p in _build.BUILD_DIR.glob("lib*.so")) == [
+        "libalpha.so", "libbeta.so"]

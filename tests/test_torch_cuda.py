@@ -1279,8 +1279,11 @@ def _bwd_close(got, want, bound, dtype):
 @pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_flash_bwd_kernel_matches_plain_version(cuda, d, mask):
     """GQA 16:2 and MHA, float32 and bf16; sq 256 against sk 384 where
-    there is no mask (key-length bound 300 in ``ragged``); two launches a
-    call (``bwd_dq``, ``bwd_dkdv``) and the same bits on a second call."""
+    there is no mask (key-length bound 300 in ``ragged``); one launch a
+    call of each kernel of the call's variant that it runs
+    (``flash.bwd_kernels``: ``bwd_dq``, ``bwd_dkdv`` in float32;
+    ``bwd_dq_wgmma``, ``bwd_dkdv_wgmma`` and, where the group is split,
+    ``bwd_dkdv_sum`` in bf16) and the same bits on a second call."""
     gen = torch.Generator(device="cuda").manual_seed(d)
     kw = BWD_MASKS[mask]
     sk = 256 if kw["causal"] else 384
@@ -1291,8 +1294,10 @@ def test_flash_bwd_kernel_matches_plain_version(cuda, d, mask):
             do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
             before = dict(flash.bwd_launches_by_kernel)
             got = flash.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-            assert all(flash.bwd_launches_by_kernel[n] == before[n] + 1
-                       for n in flash.BWD_KERNELS)
+            ran = flash.bwd_kernels(dtype, 1, hq, hkv, sk,
+                                    flash.sm_count(q.device))
+            assert all(flash.bwd_launches_by_kernel[n]
+                       == before[n] + (n in ran) for n in before)
             _bwd_close(got, ref.attention_bwd_ref(q, k, v, o, do, **kw),
                        ref.attention_bwd_rounding_bound(q, k, v, o, do, **kw),
                        dtype)
@@ -1317,6 +1322,28 @@ def test_flash_bwd_kernel_takes_the_callers_lse(cuda):
     _bwd_close(got, ref.attention_bwd_ref(q, k, v, o, do, causal=True),
                ref.attention_bwd_rounding_bound(q, k, v, o, do, causal=True),
                torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_flash_forward_lse_matches_plain_version(cuda, d):
+    """The bf16 forward's lse (``with_lse``) against ``ref.attention_lse``
+    within 2e-4 of max(1, |lse|), the rows that keep no key +inf in both;
+    the output the same bits as without it."""
+    gen = torch.Generator(device="cuda").manual_seed(d + 1)
+    q, k, v = _attn(gen, 1, 4, 2, 384, d, torch.bfloat16)
+    for kw in (dict(causal=True, window=50, kv_len=200),
+               dict(causal=False, window=0, kv_len=300)):
+        out, lse = flash.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        assert torch.equal(out, flash.flash_attention_cuda(q, k, v, **kw))
+        want = ref.attention_lse(q, k, **kw)
+        assert torch.equal(torch.isinf(lse), torch.isinf(want))
+        fin = ~torch.isinf(want)
+        tol = 2e-4 * want[fin].abs().clamp(min=1.0)
+        assert bool(((lse[fin] - want[fin]).abs() <= tol).all())
+    with pytest.raises(ValueError):
+        flash.flash_attention_cuda(q.float(), k.float(), v.float(),
+                                   with_lse=True)
 
 
 @pytest.mark.cuda

@@ -16,7 +16,12 @@ against two independent gradients of the same function, in float32:
 ``ops.flash_attention`` under autograd goes through ``ops.
 FlashAttention``, whose CPU backward is ``attention_bwd_ref``: its
 gradients equal it bit for bit, and without grad mode the call is the
-plain ``attention_ref`` as before.  ``ref.attention_bwd_rounding_bound``
+plain ``attention_ref`` as before.  On the card the bf16 forward hands the
+backward its rows' log-sum-exp: ``ref.attention_lse`` is its plain
+version, and ``attention_bwd_ref`` given it is bit for bit the same as
+without it, and as close to ``jax.grad``.  The host's choice of the bf16
+backward's dK/dV work items (``flash_attention.dkdv_heads_per_chunk``) is
+checked at the training shapes.  ``ref.attention_bwd_rounding_bound``
 is checked to cover an emulation of the bf16 kernel's roundings (P and
 dS rounded to bf16 as operands) in plain torch.
 """
@@ -29,7 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from repro.models.attention import _flash_xla
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention as flash, ops, ref
 
 TOL = 2e-5
 
@@ -158,3 +163,82 @@ def test_rounding_bound_covers_bf16_operands(case):
         assert bd.shape == w.shape and (bd >= 0).all()
         assert ((got - w).abs() <= bd + 1e-6).all()
     assert (bound[2] > 0).any() and hkv <= hq
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_bwd_ref_given_lse_is_the_same_bits(case):
+    """``attention_lse`` is what ``attention_bwd_ref`` computes itself,
+    +inf on the rows that keep no key (window, ``kv_len``), so the
+    gradients given it are the same bits."""
+    q, k, v, do, mask = _inputs(case, seed=5)
+    q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, do))
+    o = ref.attention_ref(q, k, v, **mask)
+    lse = ref.attention_lse(q, k, **mask)
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    keeps = ref._attention_mask(q.shape[2], k.shape[2], device="cpu",
+                                **mask).any(-1)
+    assert torch.equal(torch.isinf(lse), ~keeps.expand(lse.shape))
+    assert bool((lse[:, :, keeps] > -float("inf")).all())
+    if case[7] == 3:
+        assert not keeps[7:].any() and bool((lse[:, :, 7:] == float(
+            "inf")).all())
+    want = ref.attention_bwd_ref(q, k, v, o, do, **mask)
+    got = ref.attention_bwd_ref(q, k, v, o, do, lse=lse, **mask)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[7] is None],
+                         ids=[i for c, i in zip(CASES, IDS) if c[7] is None])
+def test_bwd_ref_given_lse_matches_jax_grad_of_flash_xla(case):
+    """The gradients from the forward's lse against ``jax.grad`` of the
+    JAX package's blockwise attention, within ``TOL``."""
+    q, k, v, do, mask = _inputs(case, seed=6)
+    b, hq, hkv, sq, sk = case[:5]
+    g = hq // hkv
+
+    def f(q, k, v):
+        out = _flash_xla(q.reshape(b, hkv, g, sq, -1), k, v,
+                         causal=mask["causal"], window=mask["window"],
+                         chunk=16)
+        return jnp.sum(out.reshape(b, hq, sq, -1) * do)
+    want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    plain = [torch.from_numpy(a) for a in (q, k, v)]
+    o = ref.attention_ref(*plain, **mask)
+    lse = ref.attention_lse(plain[0], plain[1], **mask)
+    got = ref.attention_bwd_ref(*plain, o, torch.from_numpy(do), lse=lse,
+                                **mask)
+    for name, a, w in zip("qkv", got, want):
+        _close(a, w, "d" + name)
+
+
+# (batch, q heads, kv heads, seq): the training shapes and the moe
+# prefill's MHA shape; heads a dK/dV chunk the host should pick
+CHUNK_SHAPES = {"internvl2-1b": ((2, 14, 2, 4352), 4),
+                "glm4-9b": ((1, 32, 2, 4096), 3),
+                "deepseek-moe-16b": ((2, 16, 16, 4096), 1)}
+
+
+@pytest.mark.parametrize("name", list(CHUNK_SHAPES))
+def test_dkdv_work_items_fill_the_card(name):
+    """At least 4 items an SM of an H100 (132) at both training shapes, by
+    splitting a group's heads into chunks of about equal size; one chunk
+    fewer (of the next larger size) would not reach them; no split, and no
+    sum of chunks, where the items already suffice."""
+    (b, hq, hkv, s), want = CHUNK_SHAPES[name]
+    heads = flash.dkdv_heads_per_chunk(b, hq, hkv, s)
+    assert heads == want
+    g = hq // hkv
+    chunks = -(-g // heads)
+    items = b * hkv * (s // flash.DKDV_KEYS) * chunks
+    assert items >= flash.ITEMS_PER_SM * flash.H100_SMS
+    if heads < g:   # fewer chunks would not reach them
+        fewer = -(-g // (chunks - 1))
+        assert b * hkv * (s // 64) * -(-g // fewer) < 4 * 132
+    kernels = flash.bwd_kernels(torch.bfloat16, b, hq, hkv, s)
+    assert kernels == (("bwd_dq_wgmma", "bwd_dkdv_wgmma", "bwd_dkdv_sum")
+                       if chunks > 1 else ("bwd_dq_wgmma", "bwd_dkdv_wgmma"))
+    assert flash.bwd_kernels(torch.float32, b, hq, hkv, s) == (
+        "bwd_dq", "bwd_dkdv")
+    # a group already large enough in items stays whole
+    assert flash.dkdv_heads_per_chunk(b, hq, hkv, s, sms=1) == g

@@ -265,6 +265,43 @@ def test_remat_runs_each_block_again_and_changes_nothing(monkeypatch):
         np.testing.assert_array_equal(g, grads[False][key], err_msg=key)
 
 
+@pytest.mark.parametrize("name", FAMILIES, ids=FAMILY_IDS)
+def test_remat_checkpoints_where_the_jax_package_does(name, monkeypatch):
+    """``cfg.remat``: one forward of the port calls ``torch.utils.
+    checkpoint`` as often as the JAX package's forward, its layers
+    unrolled, calls a body that ``_maybe_remat`` wrapped: each block of
+    the dense, vlm and moe stacks, each audio encoder block and decoder
+    layer, the mLSTM and Mamba2 layers, and not the sLSTM layer nor
+    zamba2's shared attention block."""
+    jcfg, tcfg, batch, jbatch = _setup(name)
+    jcfg = dataclasses.replace(jcfg, remat=True, scan_layers=False)
+    tcfg = dataclasses.replace(tcfg, remat=True)
+    jax_calls, port_calls = [], []
+    real_remat = jmodel._maybe_remat
+
+    def counted_remat(fn, cfg):
+        body = real_remat(fn, cfg)
+
+        def call(*args):
+            jax_calls.append(1)
+            return body(*args)
+        return call if cfg.remat else body
+    monkeypatch.setattr(jmodel, "_maybe_remat", counted_remat)
+    params = jax.eval_shape(
+        lambda: jmodel.init_params(jcfg, jax.random.PRNGKey(0)))
+    jax.eval_shape(lambda p: jmodel.hidden(p, jcfg, jbatch), params)
+    real_checkpoint = model_lib.checkpoint
+    monkeypatch.setattr(model_lib, "checkpoint",
+                        lambda fn, *a, **kw: port_calls.append(1)
+                        or real_checkpoint(fn, *a, **kw))
+    model, _ = steps.init_train_state(
+        tcfg, torch.Generator().manual_seed(0), _opt()[0], device="cpu")
+    x, _ = model.hidden(batch, cfg=tcfg)
+    assert x.requires_grad
+    assert len(jax_calls) > 0
+    assert len(port_calls) == len(jax_calls)
+
+
 def test_the_blockwise_path_trains_through_the_autograd_function():
     """``pallas`` sends attention through ``ops.flash_attention`` and its
     autograd function (the plain forward and backward here); in float32
