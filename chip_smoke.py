@@ -378,7 +378,20 @@ Phases, each printing one JSON line:
    checkpoint at 5 and 10, then again from the checkpoint at 5: the
    resumed losses and the final parameters and moments bit for bit the
    first run's;
-47. total -- the script's seconds; kernels -- one line listing every
+47. roofline -- the prefill's step (glm4-9b, 2 x 4096) and lm_train's
+   (internvl2-1b, 2 x (256 + 4096)) counted on the meta device
+   (``launch.roofline.count_step``, the flash calls as the kernel does
+   the work) with the card's peaks imported from ``launch.roofline``:
+   model FLOPs and counted FLOPs, the compute and memory terms, the
+   measured p50 and ``model_flops / (p50 x 989 TFLOP/s)``, the peak
+   estimate beside the step's own ``max_memory_allocated`` (prefill: the
+   peak reset before each timed request and read before its logits are
+   checked; lm_train: over the timed steps), ``nvidia-smi``'s name and
+   power limit; the flash calls counted must equal the launches the phase
+   counted a request or a step, and the estimate must lie within
+   ``launch.roofline.PEAK_MARGIN`` of the measured peak (the margin
+   ``fits_one_card`` leaves);
+48. total -- the script's seconds; kernels -- one line listing every
    ported kernel with its launches,
    error, times, bound, launch floor and ``deterministic`` flag (and for
    flash attention the variant, and under ``variants``, keyed by variant
@@ -422,9 +435,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+# the card's peaks (H100 SXM: HBM bytes/s, float32 and bf16 FLOP/s)
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, PEAK_MARGIN)
 
 TREES, DEPTH, FEATURES, CANDIDATES = 500, 6, 32, 32
 MICROBATCH, REQUESTS, WARMUP_REQUESTS, TREE_CHUNK = 4096, 32, 2, 25
@@ -2525,6 +2538,61 @@ def lm_pretrain_phase() -> dict:
     return out
 
 
+ROOFLINE_STEPS = {  # phase -> (arch, batch, text tokens, kind)
+    "prefill": (LM_ARCH, LM_BATCH, LM_SEQ, "prefill"),
+    "lm_train": (TRAIN_ARCH, TRAIN_BATCH, TRAIN_TEXT, "train")}
+
+
+def roofline_phase(smi_line: str, measured: dict) -> None:
+    """Phase roofline: the prefill's and lm_train's steps counted on the
+    meta device (``launch.dryrun.count_one``: no allocation, the flash
+    calls as the kernel does the work), beside what those phases
+    measured: model FLOPs (6ND / 2ND) and counted FLOPs, the compute and
+    memory terms on the card's peaks, the p50 and the share
+    ``model_flops / (p50 x 989 TFLOP/s)``, the peak estimate beside the
+    step's measured ``max_memory_allocated``.  Fails if a count raises,
+    if the flash calls counted differ from the launches the phase counted
+    a request or a step, or if the estimate lies further than
+    ``PEAK_MARGIN`` of the measured peak from it."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    for phase, (arch, batch, seq, kind) in ROOFLINE_STEPS.items():
+        t0 = time.perf_counter()
+        rec = dryrun.count_one(get_config(arch),
+                               InputShape(phase, seq, batch, kind))
+        got = measured[phase]
+        calls = {"forward": rec["attention"]["forward_calls"],
+                 "backward_calls": rec["attention"]["backward_calls"]}
+        launched = {k: got["flash_launches"][k] for k in calls}
+        check(calls == launched, f"roofline {phase}: the count has flash "
+              f"calls {calls}, the phase launched {launched} a step")
+        est_gb = rec["peak_bytes_estimate"] / 1e9
+        peak_gb = got["max_memory_allocated_gb"]
+        check(abs(peak_gb - est_gb) <= PEAK_MARGIN * peak_gb,
+              f"roofline {phase}: peak estimate {est_gb:.2f} GB, measured "
+              f"{peak_gb:.2f} GB: further apart than {PEAK_MARGIN:.0%} of "
+              "the measurement")
+        terms, p50_s = rec["roofline"], got["p50_ms"] / 1e3
+        emit("roofline", step=phase, arch=arch, kind=kind,
+             tokens=[batch, seq], nvidia_smi=smi_line,
+             **{k: rec[k] for k in (
+                 "n_params", "model_flops", "flops", "flops_float32",
+                 "bytes_accessed", "attention", "useful_flops_ratio")},
+             compute_ms=terms["compute_s"] * 1e3,
+             memory_ms=terms["memory_s"] * 1e3, dominant=terms["dominant"],
+             p50_ms=got["p50_ms"],
+             model_flops_share=rec["model_flops"] / (p50_s * BF16_OPS_PER_S),
+             bound_share=max(terms["compute_s"], terms["memory_s"]) / p50_s,
+             state_gb=rec["state_bytes"] / 1e9,
+             peak_estimate_gb=est_gb, max_memory_allocated_gb=peak_gb,
+             peak_gap_share=(peak_gb - est_gb) / peak_gb,
+             peak_margin=PEAK_MARGIN,
+             count_seconds=rec["run_s"],
+             seconds=time.perf_counter() - t0)
+    emit("roofline_total", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3951,12 +4019,17 @@ def main() -> int:
     torch.cuda.synchronize()
     del logits
     walls, next_tokens = [], []
+    # the phase's peak (the logits' checks included) and the step's own
+    phase_peak = step_peak = 0
     reset()
     for tokens in requests[1:]:
+        phase_peak = max(phase_peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         logits = step(model, {"tokens": tokens})
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        step_peak = max(step_peak, torch.cuda.max_memory_allocated())
         check(logits.shape == (LM_BATCH, LM_SEQ, lm_cfg.vocab_size)
               and logits.dtype == torch.bfloat16
               and bool(torch.isfinite(logits).all()),
@@ -3964,6 +4037,7 @@ def main() -> int:
               "not finite")
         next_tokens.append(logits[:, -1].argmax(-1).tolist())
         del logits
+    phase_peak = max(phase_peak, torch.cuda.max_memory_allocated())
     n_hist, n_left, n_gain, n_trav, n_forest, n_flash = read()
     lm_launches = n_flash
     lm_by_variant = dict(flash.launches_by_variant)
@@ -3987,11 +4061,16 @@ def main() -> int:
          p50_ms=p50 * 1e3,
          tokens_per_s=LM_BATCH * LM_SEQ * len(walls) / sum(walls),
          memory_allocated_before_gb=live_before / 1e9,
-         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         max_memory_allocated_gb=phase_peak / 1e9,
+         step_max_memory_allocated_gb=step_peak / 1e9,
          flash_launches=n_flash, flash_launches_per_request=n_flash
          / LM_REQUESTS, flash_launches_by_variant=lm_by_variant,
          next_tokens=next_tokens,
          seconds=time.perf_counter() - t_phase)
+    prefill_res = dict(p50_ms=p50 * 1e3,
+                       max_memory_allocated_gb=step_peak / 1e9,
+                       flash_launches=dict(forward=n_flash / LM_REQUESTS,
+                                           backward_calls=0))
 
     # 21. prefill_profile ---------------------------------------------------
     t_phase = time.perf_counter()
@@ -4358,7 +4437,13 @@ def main() -> int:
     lm_train = lm_train_phase(rng)
     lm_pretrain_phase()
 
-    # 47. kernels ---------------------------------------------------------
+    # 47. roofline ----------------------------------------------------------
+    roofline_phase(smi_line, {
+        "prefill": prefill_res,
+        "lm_train": dict(lm_train,
+                         flash_launches=lm_train["flash_launches_per_step"])})
+
+    # 48. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
         t = forest_timing[binned]
