@@ -76,7 +76,7 @@ Phases, each printing one JSON line:
    not share), and the card's leaves within 1e-6 of their exact sums;
    train_vs_cpu (reported, not checked: the
    CPU sums in row order, the card in fixed point, so near-ties may
-   split apart): two depth-6 trees at 1M rows from one injected grid on
+   split apart): two depth-4 trees at 1M rows from one injected grid on
    the card and on the CPU, the share of equal split features and, at
    each tree's first differing node, the gap between the two choices'
    gains on the CPU's histogram;
@@ -391,7 +391,23 @@ Phases, each printing one JSON line:
    counted a request or a step, and the estimate must lie within
    ``launch.roofline.PEAK_MARGIN`` of the measured peak (the margin
    ``fits_one_card`` leaves);
-48. total -- the script's seconds; kernels -- one line listing every
+48. sharded -- the JAX package's sharding plan applied as DTensor
+   placements on two ranks of the card (``launch.distributed.run``: gloo,
+   a ``FileStore``; DTensor's collectives through ``GlooCollectives``,
+   which ``logical_rules`` enters on such a mesh), tensor-parallel over
+   'model' on ``make_debug_mesh(1, 2)``: (a) internvl2-1b's train step
+   at full width, 2 x (256 + 4096), held at 2 layers in float32 to the
+   one-process card step (loss and gnorm within 1e-4 relative, m and v
+   within 2e-4 of each leaf's largest), then at full depth in bf16: a
+   warm-up and 3 timed steps; (b) glm4-9b's prefill, 2 x 4096, held at 2
+   layers in float32 within 2e-4, then at full depth in bf16: a warm-up
+   and 2 timed requests; the flash forward and backward kernels must run
+   on each rank's local heads (7:1 and 16:1 query:kv) and launch 48 + 24
+   a step and 40 a request on rank 0; (c) the collective operand bytes
+   each rank's counter saw in one step and one request must equal the
+   fake-group meta count of the same steps on the same mesh
+   (``launch.dryrun.measure_sharded``); ``nvidia-smi``'s line beside;
+49. total -- the script's seconds; kernels -- one line listing every
    ported kernel with its launches,
    error, times, bound, launch floor and ``deterministic`` flag (and for
    flash attention the variant, and under ``variants``, keyed by variant
@@ -407,7 +423,8 @@ Phases, each printing one JSON line:
    per-tree traversal is on no path any more (``launches`` 0,
    ``on_main_path`` false): it is listed as the counterpart of
    ``ops.traverse_chunk``.  The attention backward's entry has its
-   launches on ``lm_train`` and its times at both training shapes.
+   launches on ``lm_train`` and its times at both training shapes.  The
+   flash entries count rank 0's launches on the sharded paths too.
 
 Each LM is freed before the next is built (glm4-9b's 17.6 GB,
 deepseek-moe-16b's 33.3 GB, zamba2-2.7b's 4.6 GB, internvl2-1b's 1.0 GB
@@ -421,6 +438,7 @@ script exits non-zero before any result.  Every check raises on failure.
 """
 
 import contextlib
+import copy
 import dataclasses
 import json
 import re
@@ -446,6 +464,9 @@ MICROBATCH, REQUESTS, WARMUP_REQUESTS, TREE_CHUNK = 4096, 32, 2, 25
 TRAIN_ROWS, HOLDOUT_ROWS, TRAIN_FEATURES = 1_000_000, 100_000, 28
 TRAIN_TREES, TRAIN_DEPTH, TRAIN_CANDIDATES = 20, 6, 32
 TRAIN_NODES = 2 ** (TRAIN_DEPTH - 1)          # frontier width
+# train_vs_cpu's trees: depth 4, shallower than the training phases' 6,
+# which keeps the script's total time in bounds beside the sharded phase
+VS_CPU_DEPTH = 4
 TRAIN_BINS = TRAIN_CANDIDATES + 1
 
 # the proposal strategies: the ties set of propose_check, and the cut of
@@ -2593,6 +2614,260 @@ def roofline_phase(smi_line: str, measured: dict) -> None:
     emit("roofline_total", seconds=time.perf_counter() - t_phase)
 
 
+# the sharded phase: two ranks of the one card (gloo), tensor-parallel over
+# 'model' on make_debug_mesh(1, 2); internvl2-1b's lm_train step and
+# glm4-9b's prefill at full width, the float32 checks at 2 layers
+SHARDED_MESH, SHARDED_RANKS = (1, 2), 2
+SHARDED_STEPS, SHARDED_REQUESTS, SHARDED_CHECK_LAYERS = 3, 2, 2
+SHARDED_F32_TOL = 2e-4            # the card's float32 prefill contract
+SHARDED_LOSS_TOL, SHARDED_MV_TOL = 1e-4, 2e-4      # lm_train_check's
+
+
+def _sharded_mesh():
+    from repro_torch.launch import mesh
+    return mesh.make_debug_mesh(*SHARDED_MESH)
+
+
+def _local_heads(record: list):
+    """Record the (q heads, kv heads) of every forward and backward flash
+    launch on this rank (the kernels' entry points, as ``ops`` calls
+    them); returns the context that puts them back."""
+    from repro_torch.kernels import flash_attention as flash
+    stack = contextlib.ExitStack()
+    for name in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
+        real = getattr(flash, name)
+        stack.callback(setattr, flash, name, real)
+        setattr(flash, name, lambda q, k, *a, _r=real, _n=name, **kw:
+                record.append((_n, q.shape[1], k.shape[1])) or
+                _r(q, k, *a, **kw))
+    return stack
+
+
+def _full(t) -> torch.Tensor:
+    """A ``DTensor``'s whole value, gathered in gloo's forms (as under
+    ``logical_rules`` on this mesh); a plain tensor as it is."""
+    if not hasattr(t, "full_tensor"):
+        return t
+    from repro_torch.launch import distributed as dist_lib
+    with dist_lib.GlooCollectives():
+        return t.full_tensor()
+
+
+def sharded_train_rank(dm, rules) -> dict:
+    """(a) on this rank: internvl2-1b's train step at 2 layers in float32
+    against the one-process step on the card, then at full depth in bf16:
+    a warm-up and SHARDED_STEPS timed steps, the flash launches and their
+    local heads, the collective bytes of one step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch import roofline, shardings, steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import sharding
+    from repro_torch.optim import AdamWConfig
+    opt = AdamWConfig(lr=3e-4, warmup_steps=0, total_steps=10)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=SHARDED_CHECK_LAYERS)
+    batch = train_lib.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_TEXT,
+                                    device="cuda")(0)
+    step = steps_lib.make_train_step(cfg, opt, dtype=torch.float32)
+    model, state = train_state_on("cuda", cfg, opt, seed=12)
+    smodel, sstate = copy.deepcopy(model), copy.deepcopy(state)
+    model, state, want = step(model, state, batch)
+    shardings.shard_model(smodel, dm, cfg)
+    sstate = shardings.shard_opt_state(sstate, dm, cfg)
+    with sharding.logical_rules(rules, dm):
+        smodel, sstate, got = step(smodel, sstate,
+                                   shardings.shard_batch(batch, dm))
+    rel = {k: abs(float(_full(got[k])) - float(want[k])) / abs(float(want[k]))
+           for k in ("loss", "gnorm")}
+    mv = max(float((_full(sstate[part][n]) - t).abs().max())
+             / (float(t.abs().max()) + 1e-30)
+             for part in ("m", "v") for n, t in state[part].items())
+    check(max(rel.values()) <= SHARDED_LOSS_TOL and mv <= SHARDED_MV_TOL,
+          f"sharded lm_train check: loss/gnorm {rel}, m/v {mv}")
+    del model, state, smodel, sstate
+    torch.cuda.empty_cache()
+
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=3, total_steps=SHARDED_STEPS + 2)
+    model, state = steps_lib.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(13), opt,
+        device="cuda")
+    shardings.shard_model(model, dm, cfg)
+    state = shardings.shard_opt_state(state, dm, cfg)
+    torch.cuda.empty_cache()
+    step = steps_lib.make_train_step(cfg, opt)
+    batch_fn = train_lib.make_batch_fn(cfg, TRAIN_BATCH, TRAIN_TEXT,
+                                       device="cuda")
+    losses, step_ms, heads = [], [], []
+    with sharding.logical_rules(rules, dm):
+        model, state, m = step(model, state,
+                               shardings.shard_batch(batch_fn(0), dm))
+        losses.append(float(_full(m["loss"])))
+        torch.cuda.synchronize()
+        counts = (flash.launches, flash.bwd_launches)
+        with _local_heads(heads):
+            for i in range(1, SHARDED_STEPS + 1):
+                b = shardings.shard_batch(batch_fn(i), dm)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with roofline.CollectiveCounter() as coll:
+                    model, state, m = step(model, state, b)
+                losses.append(float(_full(m["loss"])))   # waits
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(forward=flash.launches - counts[0],
+                        backward_calls=flash.bwd_launches - counts[1])
+    del model, state
+    torch.cuda.empty_cache()
+    return dict(check=dict(rel_err=rel, m_v_share=mv,
+                           n_layers=SHARDED_CHECK_LAYERS),
+                losses=losses, step_ms=step_ms,
+                p50_ms=float(np.percentile(step_ms, 50)),
+                launches=launches, heads=sorted(set(heads)),
+                collective_bytes=dict(coll.bytes))
+
+
+def sharded_prefill_rank(dm, rules) -> dict:
+    """(b) on this rank: glm4-9b's prefill at 2 layers in float32 against
+    the one-process step on the card, then at full depth in bf16: a
+    warm-up and SHARDED_REQUESTS timed requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch import roofline, shardings, steps as steps_lib
+    from repro_torch.models import init_params, sharding
+    rng = np.random.default_rng(31)
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=SHARDED_CHECK_LAYERS)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).to("cuda")}
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda", dtype=torch.float32)
+    step = steps_lib.make_prefill_step(cfg, dtype=torch.float32)
+    want = step(model, batch)
+    shardings.shard_model(model, dm, cfg)
+    with sharding.logical_rules(rules, dm):
+        got = _full(step(model, shardings.shard_batch(batch, dm)))
+    gap = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(gap <= SHARDED_F32_TOL * max(1.0, scale),
+          f"sharded prefill check: {gap} from the one-process step")
+    del model, want, got
+    torch.cuda.empty_cache()
+
+    cfg = get_config(LM_ARCH)
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(4), device="cuda")
+    shardings.shard_model(model, dm, cfg)
+    torch.cuda.empty_cache()
+    step = steps_lib.make_prefill_step(cfg)
+    batches = [shardings.shard_batch({"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).to("cuda")}, dm)
+        for _ in range(SHARDED_REQUESTS + 1)]
+    req_ms, heads = [], []
+    with sharding.logical_rules(rules, dm):
+        logits = step(model, batches[0])
+        torch.cuda.synchronize()
+        n0 = flash.launches
+        with _local_heads(heads):
+            for b in batches[1:]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with roofline.CollectiveCounter() as coll:
+                    logits = step(model, b)
+                torch.cuda.synchronize()
+                req_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = flash.launches - n0
+        local = logits.to_local()
+        finite = bool(torch.isfinite(local).all())
+        shape = list(logits.shape)
+    check(finite and shape == [LM_BATCH, LM_SEQ, cfg.vocab_size],
+          f"sharded prefill: logits {shape}, finite {finite}")
+    del model, logits, local
+    torch.cuda.empty_cache()
+    return dict(check=dict(max_abs_err=gap, scale=scale,
+                           n_layers=SHARDED_CHECK_LAYERS),
+                req_ms=req_ms, p50_ms=float(np.percentile(req_ms, 50)),
+                launches=launches, heads=sorted(set(heads)),
+                collective_bytes=dict(coll.bytes))
+
+
+def sharded_rank() -> dict:
+    """Both sharded steps on this rank, on the 1 x 2 mesh of the group
+    ``launch.distributed.run`` started (gloo over the card's tensors)."""
+    from repro_torch.launch import mesh
+    from repro_torch.models import sharding
+    # a spawned rank: the script's precision settings again
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.cuda.reset_peak_memory_stats()
+    dm = mesh.device_mesh(_sharded_mesh())
+    rules = sharding.rules_for_mesh(mesh.shape_of(dm))
+    out = {"lm_train": sharded_train_rank(dm, rules),
+           "prefill": sharded_prefill_rank(dm, rules)}
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def sharded_phase(smi_line: str) -> dict:
+    """Phase sharded: the JAX package's plan applied as DTensor placements
+    on two ranks of the card, tensor-parallel over 'model': (a) the
+    lm_train step and (b) the prefill at full width, each held at 2
+    layers in float32 to the one-process card step, the flash kernels run
+    on each rank's local heads (7:1 and 16:1), and (c) the collective
+    bytes each rank's counter saw in one step and one request equal to
+    the fake-group meta count of the same steps
+    (``launch.dryrun.measure_sharded``: exact, held so in the tests)."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import distributed as dist_lib, dryrun
+    t_phase = time.perf_counter()
+    meta = {phase: dryrun.measure_sharded(get_config(arch), InputShape(
+        phase, seq, batch, kind), _sharded_mesh())["coll"]
+        for phase, (arch, batch, seq, kind) in ROOFLINE_STEPS.items()}
+    meta_s = time.perf_counter() - t_phase
+    got = dist_lib.run(sharded_rank, SHARDED_RANKS, device="cuda")
+    tcfg, pcfg = get_config(TRAIN_ARCH), get_config(LM_ARCH)
+    want_heads = {
+        "lm_train": {("flash_attention_cuda", tcfg.n_heads // 2,
+                      tcfg.n_kv_heads // 2),
+                     ("flash_attention_bwd_cuda", tcfg.n_heads // 2,
+                      tcfg.n_kv_heads // 2)},
+        "prefill": {("flash_attention_cuda", pcfg.n_heads // 2,
+                     pcfg.n_kv_heads // 2)}}
+    for phase in ("lm_train", "prefill"):
+        heads = {tuple(h) for h in got[phase]["heads"]}
+        check(heads == want_heads[phase], f"sharded {phase}: the flash "
+              f"kernels ran on (q, kv) heads {heads}, want "
+              f"{want_heads[phase]}")
+        check(got[phase]["collective_bytes"] == meta[phase],
+              f"sharded {phase}: the rank moved "
+              f"{got[phase]['collective_bytes']}, the meta count says "
+              f"{meta[phase]}")
+    want = {"lm_train": dict(forward=2 * tcfg.n_layers * SHARDED_STEPS,
+                             backward_calls=tcfg.n_layers * SHARDED_STEPS),
+            "prefill": pcfg.n_layers * SHARDED_REQUESTS}
+    for phase in want:
+        check(got[phase]["launches"] == want[phase],
+              f"sharded {phase}: flash launches {got[phase]['launches']} "
+              f"on rank 0, want {want[phase]}")
+    check(all(np.isfinite(got["lm_train"]["losses"])),
+          f"sharded lm_train: losses {got['lm_train']['losses']}")
+    emit("sharded", nvidia_smi=smi_line, mesh=dict(zip(
+        ("data", "model"), SHARDED_MESH)), ranks=SHARDED_RANKS,
+         backend="gloo (GlooCollectives under logical_rules)",
+         lm_train=dict(arch=TRAIN_ARCH, tokens=[TRAIN_BATCH,
+                                                 tcfg.n_frontend_tokens
+                                                 + TRAIN_TEXT],
+                       steps=SHARDED_STEPS, dtype="bfloat16",
+                       **got["lm_train"]),
+         prefill=dict(arch=LM_ARCH, tokens=[LM_BATCH, LM_SEQ],
+                      requests=SHARDED_REQUESTS, dtype="bfloat16",
+                      **got["prefill"]),
+         meta_collective_bytes=meta, meta_count_seconds=meta_s,
+         rank0_max_memory_allocated_gb=got["max_memory_allocated_gb"],
+         seconds=time.perf_counter() - t_phase)
+    return got
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3256,7 +3531,7 @@ def main() -> int:
     grid = torch.stack([proposal.random_candidates(
         g_cpu, x_cpu, TRAIN_CANDIDATES) for _ in range(2)])
     for subtract in (False, True):
-        cfg = GBDTConfig(n_trees=2, max_depth=TRAIN_DEPTH,
+        cfg = GBDTConfig(n_trees=2, max_depth=VS_CPU_DEPTH,
                          n_candidates=TRAIN_CANDIDATES, subtract=subtract)
         on_card = fit(x_tr, y_tr, cfg, candidates=grid, device="cuda")
         on_cpu = fit(x_cpu, y_cpu, cfg, candidates=grid, device="cpu")
@@ -3265,7 +3540,7 @@ def main() -> int:
                  for t in range(cfg.n_trees)]
         emit("train_vs_cpu", subtract=subtract, rows=TRAIN_ROWS,
              features=TRAIN_FEATURES, n_trees=cfg.n_trees,
-             max_depth=TRAIN_DEPTH, n_candidates=TRAIN_CANDIDATES,
+             max_depth=cfg.max_depth, n_candidates=TRAIN_CANDIDATES,
              checked=False, same_split_features=float(
                  (card_forest.feature == on_cpu.forest.feature)
                  .to(torch.float32).mean()),
@@ -4443,7 +4718,11 @@ def main() -> int:
         "lm_train": dict(lm_train,
                          flash_launches=lm_train["flash_launches_per_step"])})
 
-    # 48. kernels ---------------------------------------------------------
+    # 48. sharded ---------------------------------------------------------
+    sharded = sharded_phase(smi_line)
+    torch.cuda.empty_cache()
+
+    # 49. kernels ---------------------------------------------------------
     kernels = []
     for binned, suffix in ((False, "f32"), (True, "i32")):
         t = forest_timing[binned]
@@ -4573,8 +4852,14 @@ def main() -> int:
         "launches": lm_launches + moe_launches + sum(
             p["launches"] for p in (hyb_prefill, ssm_prefill, vlm_prefill,
                                     audio_prefill))
-        + audio_decode_counts[-1],
-        "launches_by_path": {"prefill": lm_launches,
+        + audio_decode_counts[-1] + sharded["prefill"]["launches"]
+        + sharded["lm_train"]["launches"]["forward"],
+        # the sharded paths: rank 0's launches, on its local heads
+        "launches_by_path": {"sharded_prefill": sharded["prefill"][
+                                 "launches"],
+                             "sharded_lm_train": sharded["lm_train"][
+                                 "launches"]["forward"],
+                             "prefill": lm_launches,
                              "moe_prefill": moe_launches,
                              "hybrid_prefill": hyb_prefill["launches"],
                              "ssm_prefill": ssm_prefill["launches"],
@@ -4626,11 +4911,14 @@ def main() -> int:
                                    "head_dim"), BWD_SHAPES[name])), **t}
             for name, t in bwd_timing.items()},
         "registers": bwd_regs,
-        "launches": lm_train["backward_calls"],
+        "launches": lm_train["backward_calls"]
+        + sharded["lm_train"]["launches"]["backward_calls"],
         "launches_per_step": lm_train["flash_launches_per_step"][
             "backward_calls"],
         "kernel_launches_per_call": vlm_bwd["launches_per_call"],
-        "launches_by_path": {"lm_train": lm_train["backward_calls"]},
+        "launches_by_path": {"lm_train": lm_train["backward_calls"],
+                             "sharded_lm_train": sharded["lm_train"][
+                                 "launches"]["backward_calls"]},
         "max_abs_err": vlm_bwd["max_abs_err"],
         "check_max_abs_err": bwd_check["by_variant"],
         "ms": vlm_bwd["ms"],

@@ -11,11 +11,15 @@ In the port, ``attn_impl`` picks the attention path (see
 layer's dispatch (``models/moe.py``), and ``remat`` checkpoints the
 blocks that the JAX package's ``_maybe_remat`` wraps
 (``models/model.py``, ``torch.utils.checkpoint``: their activations are
-made again in the backward).  The knobs that only shape a JAX
-compilation are accepted and have no effect here: ``causal_skip`` (the
-CUDA kernel always skips tiles wholly outside the causal band),
-``scan_layers``, ``scan_chunks``, ``seq_shard``, ``train_microbatches``
-and ``attn_chunk``.
+made again in the backward).  Under a mesh (``models/sharding.py``,
+``launch/shardings.py``) ``seq_shard`` splits the sequence over 'model'
+in the rules of a train step, ``train_microbatches`` sets the dry-run
+train step's microbatches, whose gradients are pinned to the ZeRO-1
+placements, and the dry-run sets ``moe_groups`` to the batch devices.
+The knobs that only shape a JAX compilation are accepted and have no
+effect here: ``causal_skip`` (the CUDA kernel always skips tiles wholly
+outside the causal band), ``scan_layers``, ``scan_chunks`` and
+``attn_chunk``.
 """
 
 from __future__ import annotations

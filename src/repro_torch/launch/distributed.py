@@ -17,7 +17,10 @@ The collectives the port calls go through :func:`all_gather`,
 payload each rank receives in :data:`collective_bytes` (an all-gather
 ``world_size`` times the tensor, an all-reduce the tensor), as
 ``hist.launches`` counts the histogram's launches.  gloo takes the list
-form of ``all_gather``, so that is the one used.
+form of ``all_gather``, so that is the one used.  The functional
+collectives that DTensor issues on a sharded step over CUDA tensors go
+through :class:`GlooCollectives`, which ``models.sharding.logical_rules``
+enters on such a mesh.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels.ops import device_of
 
@@ -75,6 +79,63 @@ def sum_in_rank_order(t: torch.Tensor, group=None) -> torch.Tensor:
     for p in parts[1:]:
         total = total + p
     return total
+
+
+class GlooCollectives(TorchDispatchMode):
+    """The functional collectives that DTensor issues, on CUDA tensors of
+    a gloo group, where gloo's own form fails: an all-gather into one
+    tensor (it ends the process on the card) goes through gloo's list
+    form, an all-reduce by mean (gloo has none) is a sum divided by the
+    group's size.  The same results, in the tensors' own device and
+    dtype; every other collective is gloo's own.
+    ``roofline.CollectiveCounter`` entered inside it counts the
+    functional collective as DTensor issued it.
+    ``models.sharding.logical_rules`` enters it on a gloo mesh of CUDA
+    tensors (:func:`needs_gloo_forms`), and only there: the GBDT paths
+    call gloo's own collectives through this module's functions."""
+
+    def __init__(self):
+        super().__init__()
+        f = torch.ops._c10d_functional
+        self.gather, self.reduce = f.all_gather_into_tensor, f.all_reduce
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        packet = func._overloadpacket
+        if packet is self.gather:
+            return self._all_gather(*args)
+        if packet is self.reduce and args[1] == "avg":
+            return self._mean(*args)
+        return func(*args, **(kwargs or {}))
+
+    @staticmethod
+    def _group(name):
+        if isinstance(name, str):
+            from torch.distributed.distributed_c10d import \
+                _resolve_process_group
+            return _resolve_process_group(name)
+        return name
+
+    def _all_gather(self, t, group_size, name):
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(group_size)]
+        dist.all_gather(parts, t, group=self._group(name))
+        return torch.cat(parts)
+
+    def _mean(self, t, op, name):
+        group = self._group(name)
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out.div_(dist.get_world_size(group))
+
+
+def needs_gloo_forms(device_mesh) -> bool:
+    """Whether a ``DeviceMesh``'s functional collectives need
+    :class:`GlooCollectives`: CUDA tensors over a gloo group."""
+    return device_mesh.device_type == "cuda" and \
+        dist.get_backend(device_mesh.get_group(0)) == "gloo"
 
 
 def _rank(rank: int, world_size: int, tmp: str, device: str) -> None:

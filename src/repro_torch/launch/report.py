@@ -6,10 +6,14 @@ the §Telemetry table from a record holding a fit's ``TrainReport``
 summary (``obs/report.py``) and the §Predict table from one holding
 ``PredictReport`` summaries (``obs/predict.py``).  The tables keep the
 JAX package's columns and formats; where the port has no such number the
-cell is ``-`` (the collective term: one card).  The dry-run table's time
-column is the meta run's seconds, its "arg" and "temp" columns the
-step's state and the peak of what the run made on one card.  Its
-numbers are counts on the H100's constants, not measurements.
+cell is ``-`` (a one-card record's collective bytes, a pod record's
+state).  The dry-run table's time column is the meta run's seconds, its
+"arg" and "temp" columns the step's state and the peak of what the run
+made on one card, its collective column a pod record's collective
+operand bytes a device.  The roofline table is printed for the one-card
+records and for the ``pod16x16`` records (a device's counts, with the
+collective term).  Its numbers are counts on the H100's constants and a
+published inter-node rate, not measurements.
 
 Usage: python -m repro_torch.launch.report [--dir experiments/dryrun_torch]
           [--section dryrun|roofline|telemetry|predict|both|all]
@@ -57,10 +61,12 @@ def dryrun_table(recs: list[dict]) -> str:
         fits = ("-" if "fits_one_card" not in r else
                 {True: "yes", False: "no", None: "unknown"}[
                     r["fits_one_card"]])
+        coll = r.get("collective_bytes")
+        coll = "-" if coll is None else f"{sum(coll.values()):.3g}"
         out.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['status']} | "
             f"{r.get('run_s', 0)} | {fmt_bytes(state)} | {fmt_bytes(temp)} | "
-            f"- | {fits} | "
+            f"{coll} | {fits} | "
             f"{_pods(r)} |")
     return "\n".join(out)
 
@@ -161,8 +167,14 @@ def main() -> None:
         print()
     if args.section in ("roofline", "both", "all"):
         print("## §Roofline (one H100 SXM, counted terms)\n")
-        print(roofline_table(recs))
+        print(roofline_table([r for r in recs if r.get("mesh") == "h100x1"]))
         print()
+        pods = [r for r in recs if r.get("mesh") == "pod16x16"]
+        if pods:
+            print("## §Roofline at pod16x16 (a device's counted terms, "
+                  "collective bytes over 50 GB/s)\n")
+            print(roofline_table(pods))
+            print()
     if args.section in ("telemetry", "all"):
         print("## §Telemetry (TrainReport)\n")
         with open(args.bench_json) as fh:

@@ -3,11 +3,16 @@
 A port of the JAX package's ``launch/roofline.py`` on the card's
 constants (NVIDIA's data sheet, H100 SXM, dense rates):
 
-  compute = bf16 FLOPs / 989e12 FLOP/s + float32 FLOPs / 67e12 FLOP/s
-  memory  = bytes / 3.35e12 B/s HBM
+  compute    = bf16 FLOPs / 989e12 FLOP/s + float32 FLOPs / 67e12 FLOP/s
+  memory     = bytes / 3.35e12 B/s HBM
+  collective = collective bytes / 50e9 B/s a GPU between nodes
 
-There is no collective term: the port runs on one card, has no HLO and no
-SPMD partitioner (``collective_s`` is None).  MODEL_FLOPS = 6*N*D (N =
+The collective term exists for a step run on a mesh (``launch/dryrun.py``'s
+pod records): its collective bytes a device are counted over the
+collectives DTensor issues (:class:`CollectiveCounter`); on one card it is
+None.  Under a mesh the FLOPs and bytes are a device's, counted over
+each rank's local shapes, as XLA's per-partition cost is.  These terms
+are counts over published peaks, not times.  MODEL_FLOPS = 6*N*D (N =
 params, active params for MoE; D = tokens) gives the useful-compute
 ratio.
 
@@ -55,6 +60,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 CARD_BYTES = 80e9                # H100 SXM device memory, 80 GB
+# Published figures, not measurements: a DGX H100 gives each GPU one 400
+# Gb/s NDR ConnectX-7 port between nodes, 50e9 B/s, which every pod term
+# takes (each 16-device axis of the pod meshes spans two or more 8-GPU
+# NVLink nodes); NVLink 4 moves 450e9 B/s each way within a node, used by
+# no pod term
+INTERNODE_BYTES_PER_S = 50e9
+NVLINK_BYTES_PER_S = 450e9
 # how far a step's measured peak may lie from peak_bytes_estimate, as a
 # share of the measurement; chip_smoke.py's roofline phase checks it
 PEAK_MARGIN = 0.25
@@ -71,21 +83,29 @@ def _op_kind(func) -> tuple:
     composite = formula is None and \
         torch._C._dispatch_has_kernel_for_dispatch_key(
             func.name(), torch._C.DispatchKey.CompositeImplicitAutograd)
-    moves = not func.is_view and func._overloadpacket not in _NO_TRAFFIC
+    # a collective's operands are counted by CollectiveCounter, not here
+    moves = not func.is_view and func._overloadpacket not in _NO_TRAFFIC \
+        and func.namespace not in ("_c10d_functional", "_dtensor", "c10d")
     return formula, composite, moves
 
 
-def roofline_terms(cost: dict) -> dict:
-    """The terms in seconds on one card + the dominant one.  ``cost``:
+def roofline_terms(cost: dict, coll_bytes: float | None = None) -> dict:
+    """The terms in seconds on a card + the dominant one.  ``cost``:
     ``flops``, of them ``flops_float32`` (the CUDA cores' rate: the port
-    keeps TF32 off), and ``bytes accessed``."""
+    keeps TF32 off), and ``bytes accessed``, a device's; ``coll_bytes``
+    the collective operand bytes a device (None on one card: no
+    collective term)."""
     flops = float(cost.get("flops", 0.0))
     f32 = float(cost.get("flops_float32", 0.0))
-    t_compute = (flops - f32) / BF16_OPS_PER_S + f32 / FP32_OPS_PER_S
-    t_memory = float(cost.get("bytes accessed", 0.0)) / HBM_BYTES_PER_S
-    return {"compute_s": t_compute, "memory_s": t_memory,
-            "collective_s": None,
-            "dominant": "compute" if t_compute >= t_memory else "memory"}
+    terms = {"compute_s": (flops - f32) / BF16_OPS_PER_S
+             + f32 / FP32_OPS_PER_S,
+             "memory_s": float(cost.get("bytes accessed", 0.0))
+             / HBM_BYTES_PER_S,
+             "collective_s": None if coll_bytes is None else
+             float(coll_bytes) / INTERNODE_BYTES_PER_S}
+    numeric = {k: v for k, v in terms.items() if v is not None}
+    terms["dominant"] = max(numeric, key=lambda k: numeric[k])[:-2]
+    return terms
 
 
 def fits_one_card(peak_bytes_estimate: float) -> bool | None:
@@ -145,7 +165,8 @@ def _tensors(obj) -> list[torch.Tensor]:
             out += [*leaf.parameters(), *leaf.buffers()]
         elif isinstance(leaf, torch.Tensor):
             out.append(leaf)
-    return out
+    # a DTensor's storage is its local part's: a device's state
+    return [getattr(t, "_local_tensor", t) for t in out]
 
 
 def _key(t: torch.Tensor) -> int:
@@ -168,7 +189,9 @@ class StepCounter(TorchDispatchMode):
     that ``torch.utils.checkpoint`` recomputes in the backward stay alive
     until the step ends, as they do not in a run without it, which would
     inflate the peak.  ``state`` are the tensors made before the run
-    (their storages are not the run's)."""
+    (their storages are not the run's).  Only ops on meta tensors count:
+    the run's own.  Under DTensor it sees each rank's local ops: a
+    device's work."""
 
     def __init__(self, state: list[torch.Tensor]):
         super().__init__()
@@ -184,6 +207,12 @@ class StepCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _has_dtensor(types):
+            # a device's work: DTensor runs the op on each rank's local
+            # part, and those ops come back here
+            return NotImplemented
+        if _is_fake(types):
+            return func(*args, **kwargs)
         if func not in self._ops:
             self._ops[func] = _op_kind(func)
         formula, composite, moves = self._ops[func]
@@ -199,6 +228,10 @@ class StepCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
+        if not any(t.device.type == "meta" for t in ins + outs):
+            # host bookkeeping (DTensor's shard offsets on CPU tensors,
+            # made once and cached): not the step's work
+            return out
         if formula is not None:
             n = formula(*args, **kwargs, out_val=out)
             self.flops += n
@@ -247,6 +280,88 @@ class StepCounter(TorchDispatchMode):
             self.attn["flops_float32"] += flops
         self.attn["bytes"] += q.element_size() * d * rw * (b * hq * sq
                                                             + b * hkv * sk)
+
+
+def _has_dtensor(types) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _is_fake(types) -> bool:
+    """Whether an op runs on fake tensors: DTensor's sharding rules run an
+    op once on fake global shapes to learn its output's shape, work that
+    no device does."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(issubclass(t, FakeTensor) for t in types)
+
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def _collective_kinds() -> dict:
+    """The functional collectives DTensor issues, by their kind's name."""
+    # the modules that register the ops
+    import torch.distributed._functional_collectives  # noqa: F401
+    import torch.distributed.tensor  # noqa: F401
+    f, d = torch.ops._c10d_functional, torch.ops._dtensor
+    return {f.all_gather_into_tensor: "all-gather",
+            f.all_gather_into_tensor_out: "all-gather",
+            f.all_gather_into_tensor_coalesced: "all-gather",
+            f.all_reduce: "all-reduce", f.all_reduce_: "all-reduce",
+            f.all_reduce_coalesced: "all-reduce",
+            f.all_reduce_coalesced_: "all-reduce",
+            f.reduce_scatter_tensor: "reduce-scatter",
+            f.reduce_scatter_tensor_out: "reduce-scatter",
+            f.reduce_scatter_tensor_coalesced: "reduce-scatter",
+            f.all_to_all_single: "all-to-all",
+            d.shard_dim_alltoall: "all-to-all"}
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """The operand bytes a device of the collectives that run under it, by
+    kind (:data:`COLLECTIVES`): the definition of the JAX package's
+    ``collective_bytes`` (``launch/roofline.py:50``), counted over the
+    functional collectives (``torch.ops._c10d_functional``, and DTensor's
+    ``_dtensor.shard_dim_alltoall``) that DTensor issues, forward,
+    backward and optimizer alike, where XLA's are parsed from the SPMD
+    HLO.  An operand's bytes are those of the local tensor a rank sends
+    (an all-gather's shard, a reduce-scatter's whole input), the same on
+    the meta device and on the card.  Any other ``c10d`` collective under
+    it raises: it would not be counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.kinds = _collective_kinds()
+        f = torch.ops._c10d_functional
+        self.uncounted = {f.wait_tensor, f._wrap_tensor_autograd}
+        self.bytes = dict.fromkeys(COLLECTIVES, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _has_dtensor(types):
+            # let DTensor run first: the collectives it issues inside an op
+            # (a redistribution its sharding rule asks for) come back here
+            # on local tensors
+            return NotImplemented
+        kind = self.kinds.get(func._overloadpacket)
+        if kind is not None:
+            t = args[0]
+            ts = t if isinstance(t, (list, tuple)) else [t]
+            self.bytes[kind] += sum(x.numel() * x.element_size() for x in ts)
+        elif func.namespace == "c10d" or (
+                func.namespace == "_c10d_functional"
+                and func._overloadpacket not in self.uncounted):
+            raise NotImplementedError(f"collective {func} is not counted")
+        return func(*args, **kwargs)
+
+
+def collective_bytes(fn, *args):
+    """``fn(*args)`` run once under a :class:`CollectiveCounter` ->
+    (its result, the operand bytes a device by kind)."""
+    with CollectiveCounter() as counter:
+        out = fn(*args)
+    return out, dict(counter.bytes)
 
 
 @contextlib.contextmanager

@@ -14,10 +14,15 @@ tuples, the entries of the JAX ``PartitionSpec``: ``None``, an axis name,
 or a tuple of axes.  They are keyed by the JAX flat path of each leaf
 (``layers/attn/wq/w``, ``m/layers/attn/wq/w``), the leaf the stacked
 shape of the port's per-layer parameters (:func:`param_leaves`), so that
-the plan is the JAX package's entry for entry.  The port runs on one
-card: the plan is computed, not applied; :func:`bytes_per_device` gives a
-state's bytes a device under it, the counterpart of the JAX record's
-``argument_size_in_bytes``.
+the plan is the JAX package's entry for entry.  :func:`bytes_per_device`
+gives a state's bytes a device under it, the counterpart of the JAX
+record's ``argument_size_in_bytes``.
+
+The plan is applied on a ``DeviceMesh`` (``launch.mesh.device_mesh``):
+:func:`placements` turns a spec tuple into DTensor placements, and
+:func:`shard_model`, :func:`shard_opt_state`, :func:`shard_batch` and
+:func:`shard_decode_state` place a state by it, each per-layer tensor by
+its stacked leaf's spec without the stacked axes.
 """
 
 from __future__ import annotations
@@ -187,6 +192,123 @@ def batch_spec(shape, mesh) -> tuple:
 
 def batch_shardings(batch: dict, mesh) -> dict:
     return {k: batch_spec(tuple(t.shape), mesh) for k, t in batch.items()}
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements of a spec tuple on a ``DeviceMesh``: the tensor
+    dim whose entry names a mesh axis is ``Shard(dim)`` on that mesh dim,
+    every other mesh dim ``Replicate()``.  An entry of several axes
+    (``("pod", "data")``) shards its one dim over each of them, major to
+    minor in mesh order, as JAX lays it out."""
+    from torch.distributed.tensor import Replicate, Shard
+    from .mesh import mesh_dims
+    out = [Replicate()] * mesh.ndim
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        order = [a for n in mesh.mesh_dim_names for a in n.split("+")]
+        if [order.index(a) for a in axes] != sorted(order.index(a)
+                                                   for a in axes):
+            raise ValueError(f"spec entry {entry} is not in the mesh's "
+                             f"axis order {order}")
+        for m in mesh_dims(mesh, axes):
+            out[m] = Shard(dim)
+    return tuple(out)
+
+
+def _placed(t: torch.Tensor, spec: tuple, device_mesh):
+    """``t``, which every rank holds whole, as a ``DTensor`` placed by
+    ``spec``; each rank keeps its own part, no collective."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, device_mesh, placements(spec, device_mesh),
+                             src_data_rank=None)
+
+
+def _leaf_specs(named, plan: dict, own, prefix: str = "") -> dict:
+    """Each (name, tensor)'s spec, keyed by parameter name: its stacked
+    leaf's (``plan``, by JAX flat path) without the stacked leading axes,
+    which :func:`param_spec` leaves replicated.  Where the ZeRO extension
+    put the batch axes on a stacked axis (the layer axis the longest, as
+    in a stacked bias), which a per-layer tensor has not, it is
+    ``own(path, tensor)``: the same rule on the tensor's own dims."""
+    out = {}
+    for name, t in named:
+        path = flat_key(name)[0]
+        spec = plan[prefix + path]
+        lead = len(spec) - t.ndim
+        out[name] = (own(path, t) if lead > 0 and any(
+            s is not None for s in spec[:lead]) else spec[max(lead, 0):])
+    return out
+
+
+def shard_model(model, device_mesh, cfg=None):
+    """The model's parameters placed by :func:`param_shardings` on
+    ``device_mesh`` (IN PLACE; returns the model).  Every rank holds the
+    same model; each keeps its part.  A per-layer tensor takes its
+    stacked leaf's spec without the stacked axes (:func:`_leaf_specs`)."""
+    from .mesh import shape_of
+    mesh = shape_of(device_mesh)
+    params = list(model.named_parameters())
+    leaves = param_leaves(params)
+
+    def own(path, t):
+        spec = param_spec(path, t.shape, mesh, cfg)
+        return zero_extend(spec, t.shape, mesh) if use_fsdp(
+            leaves, mesh, cfg) else spec
+    specs = _leaf_specs(params, param_shardings(leaves, mesh, cfg), own)
+    for name, p in params:
+        path, _, attr = name.rpartition(".")
+        owner = model.get_submodule(path) if path else model
+        setattr(owner, attr, torch.nn.Parameter(
+            _placed(p.detach(), specs[name], device_mesh),
+            requires_grad=p.requires_grad))
+    return model
+
+
+def shard_opt_state(opt_state: dict, device_mesh, cfg=None) -> dict:
+    """An AdamW state placed by :func:`opt_shardings`: m and v by the
+    parameter rule with the ZeRO-1 extension over the batch axes; the
+    step counter replicated (kept a plain tensor)."""
+    from .mesh import shape_of
+    mesh = shape_of(device_mesh)
+    plan = opt_shardings(opt_leaves(opt_state), mesh, cfg)
+
+    def own(path, t):
+        return zero_extend(param_spec(path, t.shape, mesh, cfg), t.shape,
+                           mesh)
+    out = {"step": opt_state["step"]}
+    for part in ("m", "v"):
+        specs = _leaf_specs(opt_state[part].items(), plan, own, f"{part}/")
+        out[part] = {n: _placed(t, specs[n], device_mesh)
+                     for n, t in opt_state[part].items()}
+    return out
+
+
+def grad_placements(opt_state: dict) -> dict:
+    """Parameter name -> the placements of its AdamW moment m: where
+    ``make_train_step(grad_shardings=)`` pins the gradients."""
+    return {n: t.placements for n, t in opt_state["m"].items()}
+
+
+def shard_batch(batch: dict, device_mesh) -> dict:
+    """Model inputs placed by :func:`batch_shardings`: the batch axis over
+    the batch axes where they divide it."""
+    from .mesh import shape_of
+    specs = batch_shardings(batch, shape_of(device_mesh))
+    return {k: _placed(t, specs[k], device_mesh) for k, t in batch.items()}
+
+
+def shard_decode_state(state, specs, device_mesh):
+    """A decode state placed by its spec tuples
+    (``specs.decode_state_shardings``, nested as the state is)."""
+    if isinstance(state, dict):
+        return {k: shard_decode_state(state[k], specs[k], device_mesh)
+                for k in state}
+    if isinstance(state, tuple):
+        return tuple(shard_decode_state(t, s, device_mesh)
+                     for t, s in zip(state, specs))
+    return _placed(state, specs, device_mesh)
 
 
 def maybe(axis_or_axes, dim: int, mesh) -> object:

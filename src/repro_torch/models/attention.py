@@ -32,8 +32,10 @@ buffer of the last L tokens under a sliding window.  Decode attention is
 plain torch, as it is plain ``jnp`` in the JAX package: float32 scores
 and softmax over the whole cache.
 
-Left out: the JAX ``sharding.constrain`` calls, which are no-ops without
-a mesh (the port runs on one card).
+Under a mesh (``models/sharding.py``'s rules installed, the activations
+``DTensor``s) the attention output is constrained as the JAX package's
+is, and the softmax or the kernel runs on each rank's rows and heads
+(:func:`_attend_local`).
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from . import layers
+from . import layers, sharding
+from .sharding import constrain
 from ..kernels import ops as kernel_ops
 
 NEG_INF = -1e30
@@ -78,9 +81,9 @@ def project_qkv(p: Attention, cfg, x: torch.Tensor,
     b, sq, _ = x.shape
     kv_x = x if kv_x is None else kv_x
     sk = kv_x.shape[1]
-    q = p.wq(x).reshape(b, sq, cfg.n_heads, cfg.head_dim)
-    k = p.wk(kv_x).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
-    v = p.wv(kv_x).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    q = sharding.unflatten(p.wq(x), cfg.n_heads, cfg.head_dim)
+    k = sharding.unflatten(p.wk(kv_x), cfg.n_kv_heads, cfg.head_dim)
+    v = sharding.unflatten(p.wv(kv_x), cfg.n_kv_heads, cfg.head_dim)
     if p.q_norm is not None:
         q = p.q_norm(q)
         k = p.k_norm(k)
@@ -94,11 +97,13 @@ def _grouped(q, k, v, hkv: int):
     return q, k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _naive(cfg, q, k, v, positions, kv_positions, *, causal, window):
+def _naive(cfg, q, k, v, positions, kv_positions, *, causal, window,
+           hkv=None):
     """Float32 softmax over every (query, key) pair; masks from the
-    positions, masked scores at NEG_INF."""
-    b, sq = q.shape[:2]
-    qg, kg, vg = _grouped(q, k, v, cfg.n_kv_heads)
+    positions, masked scores at NEG_INF.  ``hkv``: the kv heads k and v
+    hold (default ``cfg.n_kv_heads``; fewer on a rank's local heads)."""
+    b, sq, hq = q.shape[:3]
+    qg, kg, vg = _grouped(q, k, v, hkv or cfg.n_kv_heads)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
                      kg.float()) / (cfg.head_dim ** 0.5)
     qpos = positions[:, None, None, :, None]
@@ -110,7 +115,7 @@ def _naive(cfg, q, k, v, positions, kv_positions, *, causal, window):
         mask &= kpos > qpos - window
     pr = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     og = torch.einsum("bhgqk,bhkd->bhgqd", pr, vg.float())
-    return og.reshape(b, cfg.n_heads, sq, cfg.head_dim).transpose(1, 2)
+    return og.reshape(b, hq, sq, cfg.head_dim).transpose(1, 2)
 
 
 def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
@@ -142,17 +147,70 @@ def attention(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor,
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, kv_positions, cfg.rope_theta)
 
+    out = _attend_local(cfg, q, k, v, positions, kv_positions,
+                        causal=causal, window=window)
+    out = constrain(out, "batch", "seq", "heads", None)
+    return p.wo(sharding.flatten(out))
+
+
+def _attend(cfg, q, k, v, positions, kv_positions, *, causal, window):
+    """q (B, Sq, Hq, Dh), k and v (B, Sk, Hkv, Dh) -> (B, Sq, Hq, Dh) in
+    q's dtype: the naive float32 softmax or the blockwise kernel, by
+    ``cfg.attn_impl`` and the lengths."""
+    sq, hkv = q.shape[1], k.shape[2]
     naive = cfg.attn_impl == "xla_full" or (
         cfg.attn_impl == "xla_chunked" and sq * k.shape[1] <= 512 * 512)
     if naive:
-        out = _naive(cfg, q, k, v, positions, kv_positions, causal=causal,
-                     window=window).to(x.dtype)
-    else:
-        heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
-        out = kernel_ops.flash_attention(
-            *heads, causal=causal, window=window,
-            ragged=cfg.attn_impl == "xla_chunked").transpose(1, 2)
-    return p.wo(out.reshape(b, sq, cfg.n_heads * cfg.head_dim))
+        return _naive(cfg, q, k, v, positions, kv_positions, causal=causal,
+                      window=window, hkv=hkv).to(q.dtype)
+    heads = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    return kernel_ops.flash_attention(
+        *heads, causal=causal, window=window,
+        ragged=cfg.attn_impl == "xla_chunked").transpose(1, 2)
+
+
+def _attend_local(cfg, q, k, v, positions, kv_positions, *, causal,
+                  window):
+    """:func:`_attend` on each rank's rows and heads: q placed as the JAX
+    package's ``constrain`` at its ``attention.py:219`` places the output
+    (batch on the batch axes, heads on 'model', split as
+    ``sharding.constrain`` splits an uneven count), k and v on the same
+    kv heads where both counts divide 'model' (``sharding.local``), so
+    the blockwise kernel runs on each rank's local heads.  Otherwise the
+    kv heads stay whole on every rank, and each rank takes the ones its
+    query heads read; a rank past the last query head attends with none.
+    Without a mesh, :func:`_attend` itself."""
+    m = sharding.axis_size("heads")
+    aligned = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+    kv_heads = "kv_heads" if aligned else None
+    g = cfg.n_heads // cfg.n_kv_heads
+
+    def body(q, k, v, positions, kv_positions):
+        if not aligned:
+            # the kv heads that this rank's query heads read, in order,
+            # each once where every one of them serves as many
+            first, n = sharding.local_share("heads", cfg.n_heads)
+            idx = [(first + j) // g for j in range(n)]
+            if len({idx.count(i) for i in idx}) == 1:
+                idx = list(dict.fromkeys(idx))
+            k, v = (t[:, :, torch.tensor(idx, dtype=torch.long,
+                                         device=t.device)] for t in (k, v))
+            if n == 0:
+                # nothing to attend; k and v stay in the graph, so that
+                # every rank's backward runs the same collectives
+                return q + (k.sum() + v.sum()).to(q.dtype)
+        return _attend(cfg, q, k, v, positions, kv_positions, causal=causal,
+                       window=window)
+    rows = ("batch", None)
+    # where each rank reads some of whole kv heads, its gradient of them
+    # is its part of a sum over 'model'
+    return sharding.local(
+        body, ("batch", None, "heads", None), ("batch", None, "heads", None),
+        ("batch", None, kv_heads, None), ("batch", None, kv_heads, None),
+        rows, rows,
+        partial_grads=None if aligned else {1: ("heads",), 2: ("heads",)})(
+            q, k, v, sharding.distribute(positions, *rows),
+            sharding.distribute(kv_positions, *rows))
 
 
 def init_kv_cache(cfg, batch: int, length: int,
@@ -191,6 +249,31 @@ def attention_decode(p: Attention, cfg, x: torch.Tensor, cache: dict,
     return p.wo(out.to(x.dtype)), cache
 
 
+def groupable(cfg, q):
+    """q (B, 1, Hq, Dh), whose heads each rank can split into (kv heads,
+    group): on a mesh whose 'model' axis does not divide the kv heads,
+    its heads gathered first (DTensor does not split an axis whose shards
+    straddle the new ones; one token's q is small)."""
+    if cfg.n_kv_heads % sharding.axis_size("kv_heads") == 0:
+        return q
+    return sharding.gathered(q, 2)
+
+
+def _write(ck, cv, k, v, slot):
+    """k and v (B, 1, Hkv, Dh) into one slot a row of the caches ck and cv
+    (B, L, Hkv, Dh), in place."""
+    rows = torch.arange(slot.shape[0], device=slot.device)
+    ck[rows, slot] = k[:, 0].to(ck.dtype)
+    cv[rows, slot] = v[:, 0].to(cv.dtype)
+
+
+def _rows(place: tuple) -> tuple:
+    """The placements of a (B, ...) tensor split as the rows of a tensor
+    of placements ``place``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(0) if p == Shard(0) else Replicate() for p in place)
+
+
 def decode_attend(cfg, q, k, v, cache: dict, pos: torch.Tensor, *,
                   window: int = 0) -> torch.Tensor:
     """The cache's part of decode attention: write k and v (B, 1, Hkv, Dh)
@@ -200,24 +283,38 @@ def decode_attend(cfg, q, k, v, cache: dict, pos: torch.Tensor, *,
     The slot is ``pos % L`` under a window (the ring buffer, every slot
     valid once written) and ``min(pos, L - 1)`` otherwise (slots up to
     ``pos`` valid).  Scores and softmax in float32, masked at NEG_INF.
+    On a mesh each rank writes its rows into its part of the caches, k and
+    v placed as the caches are, and attends with them
+    (:func:`_attend_cache_local`).
     """
     b = q.shape[0]
-    L = cache["k"].shape[1]
+    ck, cv = cache["k"], cache["v"]
+    L = ck.shape[1]
     slot = pos % L if window > 0 else pos.clamp(max=L - 1)
-    rows = torch.arange(b, device=q.device)
-    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    place = getattr(ck, "placements", ())       # () without a mesh
+    sharding.local(_write, [None], *[place] * 4, _rows(place))(
+        ck, cv, k, v, sharding.distribute(slot, "batch"))
+    out = _attend_cache_local(cfg, q, ck, cv, pos, place, window=window)
+    return out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
 
+
+def _attend_cache(cfg, q, ck, cv, pos, *, window, reduce=None):
+    """q (B, 1, Hq, Dh) over the caches ck, cv (B, L, Hkv, Dh) -> (B, 1,
+    Hq, Dh) float32.  ``reduce``: applied to the scores where each rank
+    holds part of the head dim (their sum over the ranks)."""
+    b, _, hq, d = q.shape
+    L, hkv = ck.shape[1], ck.shape[2]
     # float32 (B, Hkv, L, Dh), laid out for the batched products: one pass
     # over the cache each, where a cast that kept the cache's layout would
     # be copied again inside the product
-    kg, vg = (cache[n].transpose(1, 2).to(
+    kg, vg = (t.transpose(1, 2).to(
         torch.float32, memory_format=torch.contiguous_format)
-        for n in ("k", "v"))
-    g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.transpose(1, 2).reshape(b, cfg.n_kv_heads, g, 1, cfg.head_dim)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
-                     kg) / (cfg.head_dim ** 0.5)
+        for t in (ck, cv))
+    qg = q.transpose(1, 2).reshape(b, hkv, hq // hkv, 1, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), kg)
+    if reduce is not None:
+        s = reduce(s)
+    s = s / (cfg.head_dim ** 0.5)
     idx = torch.arange(L, device=q.device)[None, :]
     if window > 0:
         valid = idx < torch.clamp(pos[:, None] + 1, max=L)
@@ -226,5 +323,31 @@ def decode_attend(cfg, q, k, v, cache: dict, pos: torch.Tensor, *,
     pr = torch.softmax(torch.where(valid[:, None, None, None, :], s,
                                    NEG_INF), dim=-1)
     og = torch.einsum("bhgqk,bhkd->bhgqd", pr, vg)
-    out = og.reshape(b, cfg.n_heads, 1, cfg.head_dim).transpose(1, 2)
-    return out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return og.reshape(b, hq, 1, d).transpose(1, 2)
+
+
+def _attend_cache_local(cfg, q, ck, cv, pos, place, *, window):
+    """:func:`_attend_cache` on each rank's part of the caches, of
+    placements ``place``, as the decode state's plan places them
+    (``specs.decode_state_shardings``: the kv heads over 'model' where
+    they divide it, else the head dim where it does), and the query heads
+    that part serves: the scores of a split head dim are summed over
+    'model' in one all-reduce a step, as XLA partitions the JAX einsum.
+    Without a mesh (``place`` empty), :func:`_attend_cache` itself."""
+    from torch.distributed.tensor import Replicate, Shard
+    split_d = [i for i, p in enumerate(place) if p == Shard(3)]
+    q_place = tuple(p if p in (Shard(0), Shard(2), Shard(3)) else Replicate()
+                    for p in place)
+
+    def reduce(s):
+        from torch.distributed import _functional_collectives as funcol
+        for i in split_d:
+            s = funcol.all_reduce(s, "sum", (ck.device_mesh, i))
+        return s
+
+    def body(q, ck, cv, pos):
+        return _attend_cache(cfg, q, ck, cv, pos, window=window,
+                             reduce=reduce if split_d else None)
+    return sharding.local(body, q_place, q_place, place, place,
+                          _rows(place))(
+        groupable(cfg, q), ck, cv, sharding.distribute(pos, "batch"))

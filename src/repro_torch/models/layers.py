@@ -42,6 +42,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .sharding import (Pending, axis_size, constrain, distribute, is_sharded,
+                       local, local_index, operand)
+
 COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -112,12 +115,48 @@ class Embedding(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
-        # the JAX package casts the table, then gathers; row by row the same
-        return self.table[tokens].to(dtype)
+        return _embed(self.table, tokens, dtype)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits against the table: ``x @ table.T`` in x's dtype."""
-        return x @ self.table.to(x.dtype).T
+        """Tied output projection: x (..., D) @ table.T -> (..., V)."""
+        return x @ vocab_rows(self.table).to(x.dtype).T
+
+
+def vocab_rows(table: torch.Tensor) -> torch.Tensor:
+    """The token table placed as the logits it makes are constrained:
+    its vocabulary split over 'model' (``sharding.operand``).  Where the
+    plan leaves the table whole (a vocabulary that 'model' does not
+    divide), each rank takes its rows and makes its own columns of the
+    logits, as XLA partitions a product whose output is constrained;
+    DTensor places a product by its operands alone.  A no-op where the
+    plan splits the table already, or without a mesh."""
+    return operand(table, "vocab", "embed")
+
+
+def _embed(table, tokens, dtype):
+    """The rows of ``table`` for ``tokens``, cast to ``dtype``.  On a mesh
+    whose 'model' axis splits the vocabulary, each rank gathers the rows
+    of its part, and 0 for a token another rank holds, so that the parts
+    are a pending sum over 'model' (all-reduced where the model
+    constrains the embedding, as XLA partitions the JAX gather); each
+    rank's gradient of the table is its part of a sum over the batch."""
+    vocab = "vocab" if table.shape[0] % axis_size("vocab") == 0 \
+        and axis_size("vocab") > 1 else None
+
+    def body(table, tokens):
+        if vocab is None:
+            # the JAX package casts the table, then gathers; row by row
+            # the same
+            return table[tokens].to(dtype)
+        n = table.shape[0]
+        ids = tokens.long() - local_index("vocab") * n
+        hit = (ids >= 0) & (ids < n)
+        rows = table[ids.clamp(0, n - 1)].to(dtype)
+        return torch.where(hit[..., None], rows, 0)
+    out = ("batch", None, None)
+    return local(body, Pending(out, ("vocab",)) if vocab else out,
+                 (vocab, None), ("batch", None),
+                 partial_grads={0: ("batch",)})(table, tokens)
 
 
 def _no_posinf(t: torch.Tensor) -> torch.Tensor:
@@ -195,6 +234,8 @@ class MLP(nn.Module):
             h = silu(h) * (x @ self.wg.to(x.dtype))
         else:
             h = gelu_tanh(h)
+        h = constrain(h, *(("batch", "seq", "ff") if h.ndim == 3
+                           else ("batch", "ff")))
         return h @ self.wo.to(x.dtype)
 
 
@@ -227,9 +268,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token cross-entropy in float32; logits (..., V), labels (...)
     ints, ``mask`` (...) weights (the mean over its sum, at least 1)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    lse, ll = _lse_and_label(logits.float(), labels)
     nll = lse - ll
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -240,10 +279,33 @@ def _xent_sum(table: torch.Tensor, x: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
     """The summed cross-entropy of one chunk: logits ``x @ table.T`` in
     x's dtype, then float32."""
-    logits = (x @ table.to(x.dtype).T).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    logits = constrain((x @ vocab_rows(table).to(x.dtype).T).float(),
+                       "batch", None, "vocab")
+    lse, ll = _lse_and_label(logits, labels)
     return torch.sum(lse - ll)
+
+
+def _lse_and_label(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp over the last axis, the label's logit) of float32
+    logits.  Where the logits are a ``DTensor`` sharded over the
+    vocabulary, each rank reduces its own columns and the parts meet in
+    all-reduces of (..., 1) rows: the max, the sum of exponentials, and
+    the label's logit (one rank holds it, the others add 0), as XLA
+    partitions the JAX package's ``logsumexp`` and ``take_along_axis``;
+    the same formula as ``torch.logsumexp``'s, its sum split by rank."""
+    if not is_sharded(logits):
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse, logits.gather(-1, labels.long()[..., None])[..., 0]
+    rows = ("batch",) + (None,) * (logits.ndim - 1)
+    m = constrain(logits.detach().amax(-1, keepdim=True), *rows)
+    total = constrain(torch.exp(logits - m).sum(-1, keepdim=True), *rows)
+    lse = (torch.log(total) + m)[..., 0]
+    iota = distribute(torch.arange(logits.shape[-1], device=logits.device),
+                      "vocab")
+    hit = labels.long()[..., None] == iota
+    ll = constrain(torch.where(hit, logits, 0.0).sum(-1, keepdim=True),
+                   *rows)[..., 0]
+    return lse, ll
 
 
 def softmax_xent_chunked(table: torch.Tensor, x: torch.Tensor,

@@ -55,8 +55,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import layers, ssm
-from .attention import Attention, attention, attention_decode, init_kv_cache
+from .attention import (Attention, attention, attention_decode, groupable,
+                        init_kv_cache)
 from .moe import MoE
+from .sharding import constrain, distribute, unflatten
 from ..kernels.ops import device_of
 
 # fields of ArchConfig that change how a model runs, not its parameters
@@ -102,7 +104,9 @@ class DecoderBlock(nn.Module):
         """x (B, S, D) -> (x, the router loss, or None)."""
         x = x + self.attn(cfg, self.ln1(x), positions, causal=causal,
                           window=window)
-        return self._ffn(cfg, x)
+        x = constrain(x, "batch", "seq", "embed")
+        x, aux = self._ffn(cfg, x)
+        return constrain(x, "batch", "seq", "embed"), aux
 
     def decode(self, cfg, x, cache, pos, *, window=0):
         """One token x (B, 1, D) against this layer's ``cache`` (updated
@@ -132,14 +136,19 @@ class CrossBlock(nn.Module):
         frames, (B, F, Hkv, Dh) each: plain float32 attention, as the JAX
         package writes it in ``jnp``."""
         b = x.shape[0]
-        q = self.attn.wq(self.ln(x)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+        q = unflatten(self.attn.wq(self.ln(x)), cfg.n_heads, cfg.head_dim)
         g = cfg.n_heads // cfg.n_kv_heads
-        qg = q.transpose(1, 2).reshape(b, cfg.n_kv_heads, g, 1, cfg.head_dim)
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
-                         cross_k.transpose(1, 2).float()) / (
-                             cfg.head_dim ** 0.5)
-        og = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1),
-                          cross_v.transpose(1, 2).float())
+        qg = groupable(cfg, q).transpose(1, 2).reshape(
+            b, cfg.n_kv_heads, g, 1, cfg.head_dim)
+        # float32 (B, Hkv, F, Dh) laid out for the products, as
+        # attention.decode_attend lays the cache out (a DTensor's einsum
+        # over a transposed layout fails its view)
+        kg, vg = (t.transpose(1, 2).to(
+            torch.float32, memory_format=torch.contiguous_format)
+            for t in (cross_k, cross_v))
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), kg) / (
+            cfg.head_dim ** 0.5)
+        og = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1), vg)
         o = og.reshape(b, cfg.n_heads, 1, cfg.head_dim).transpose(1, 2)
         return x + self.attn.wo(o.reshape(b, 1, -1).to(x.dtype))
 
@@ -221,11 +230,12 @@ class DecoderLM(nn.Module):
     def encode_audio(self, cfg, frames, *, dtype=layers.COMPUTE_DTYPE):
         """The audio encoder: stub frame embeddings (B, F, D), cast to
         ``dtype`` -> its output (B, F, D)."""
-        frames = torch.as_tensor(frames, device=self.embed.table.device)
+        frames = _on(frames, self.embed.table.device)
         x = self.frame_proj(frames.to(dtype))
         f = x.shape[1]
         x = x + sinusoidal(f, cfg.d_model, x.device).to(x.dtype)[None]
-        pos = torch.arange(f, device=x.device).expand(x.shape[0], f)
+        pos = distribute(torch.arange(f, device=x.device).expand(
+            x.shape[0], f), "batch", None)
         for block in self.enc_layers:
             x, _ = _remat(cfg, block, cfg, x, pos, causal=False)
         return self.ln_enc(x)
@@ -244,20 +254,21 @@ class DecoderLM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "audio":
             b, f = enc_out.shape[:2]
-            enc_pos = torch.arange(f, device=x.device).expand(b, f)
+            enc_pos = distribute(torch.arange(f, device=x.device).expand(
+                b, f), "batch", None)
             for block, cross in zip(self.dec_layers, self.cross_layers):
                 x = _remat(cfg, _audio_layer, cfg, x, positions, enc_out,
                            enc_pos, block, cross)
         elif cfg.family == "ssm":
             for group, sl in zip(self.mlstm, self.slstm):
                 for ml in group:
-                    x = x + _remat(cfg, ml, cfg, x)[0]
-                x = x + sl(cfg, x)[0]
+                    x = _residual(x + _remat(cfg, ml, cfg, x)[0])
+                x = _residual(x + sl(cfg, x)[0])
         elif cfg.family == "hybrid":
             for group in self.mamba:
                 x, _ = self.shared_attn(cfg, x, positions, window=window)
                 for mb in group:
-                    x = x + _remat(cfg, mb, cfg, x)[0]
+                    x = _residual(x + _remat(cfg, mb, cfg, x)[0])
         else:
             for block in self.layers:
                 x, a = _remat(cfg, block, cfg, x, positions, window=window)
@@ -273,28 +284,31 @@ class DecoderLM(nn.Module):
         the layers."""
         cfg = self._config(cfg)
         device = self.embed.table.device
-        tokens = torch.as_tensor(batch["tokens"], device=device)
-        x = self.embed(tokens, dtype=dtype)
+        tokens = _on(batch["tokens"], device)
+        x = constrain(self.embed(tokens, dtype=dtype), "batch", "seq",
+                      "embed")
         n_front = 0
         if cfg.family == "vlm":
-            patches = torch.as_tensor(batch["patches"], device=device)
+            patches = _on(batch["patches"], device)
             patches = self.patch_proj(patches.to(x.dtype))
             x = torch.cat([patches, x], 1)
             n_front = patches.shape[1]
         b, s = x.shape[:2]
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = distribute(torch.arange(s, device=x.device).expand(
+            b, s), "batch", None)
         enc_out = (self.encode_audio(cfg, batch["frames"], dtype=x.dtype)
                    if cfg.family == "audio" else None)
         x, aux = self.backbone(cfg, x, positions, window=window,
                                enc_out=enc_out)
         return self.ln_f(x)[:, n_front:], aux
 
-    def forward(self, batch, *, cfg=None, window=0):
+    def forward(self, batch, *, cfg=None, window=0,
+                dtype=layers.COMPUTE_DTYPE):
         """``batch["tokens"]`` (B, S) ints, with ``"patches"`` (B, P, D) in
         the vlm family and ``"frames"`` (B, F, D) in the audio family ->
-        (logits (B, S, V) in bf16, aux)."""
-        x, aux = self.hidden(batch, cfg=cfg, window=window)
-        return self.logits(x), aux
+        (logits (B, S, V) in ``dtype``, bf16 by default, aux)."""
+        x, aux = self.hidden(batch, cfg=cfg, window=window, dtype=dtype)
+        return constrain(self.logits(x), "batch", "seq", "vocab"), aux
 
     def logits(self, x):
         """Tied logits, or the ``unembed`` map: x (..., D) -> (..., V)."""
@@ -349,11 +363,31 @@ class DecoderLM(nn.Module):
         """
         cfg = self._config(cfg)
         device = self.embed.table.device
-        tokens = torch.as_tensor(tokens, device=device)
-        pos = torch.as_tensor(pos, device=device)
+        tokens, pos = _on(tokens, device), _on(pos, device)
         x = self.decode_backbone(cfg, self.embed(tokens), state, pos,
                                  window=window)
         return self.logits(self.ln_f(x)), state
+
+
+def _residual(x):
+    """The residual stream after a recurrent layer, placed as a decoder
+    block leaves it (``constrain`` at the block's own sites).  The JAX
+    package leaves these layers' outputs to XLA's propagation, which
+    reduces the row-parallel product's partial sums over 'model' and
+    keeps the batch on the batch axes; DTensor places each op by its own
+    inputs alone, and without this pin moves the batch onto 'model' and
+    back at every layer (xlstm-125m's step then moves more bytes a device
+    on the 2 x 16 x 16 mesh than on 16 x 16)."""
+    return constrain(x, "batch", "seq", "embed")
+
+
+def _on(t, device) -> torch.Tensor:
+    """``t`` (an array or a tensor) as a tensor on ``device``; a tensor
+    there already (a ``DTensor`` of a sharded batch among them) as it
+    is."""
+    if isinstance(t, torch.Tensor) and t.device == torch.device(device):
+        return t
+    return torch.as_tensor(t, device=device)
 
 
 def _audio_layer(cfg, x, positions, enc_out, enc_pos, block, cross):
@@ -384,7 +418,7 @@ def loss_fn(model: DecoderLM, cfg, batch, *, window: int = 0,
     package, float32 where a check wants no rounding between the layers.
     """
     x, aux = model.hidden(batch, cfg=cfg, window=window, dtype=dtype)
-    tokens = torch.as_tensor(batch["tokens"], device=x.device)
+    tokens = _on(batch["tokens"], x.device)
     if model.unembed is None:
         loss = layers.softmax_xent_chunked(model.embed.table, x[:, :-1],
                                            tokens[:, 1:])

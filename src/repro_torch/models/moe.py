@@ -29,10 +29,14 @@ them to the activations' dtype at use, which rounds them the same way.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
 from . import layers
+from .sharding import (Pending, axis_size, constrain, even_splits, local,
+                       local_index)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -124,11 +128,49 @@ def positions(cfg, flat_e: torch.Tensor) -> torch.Tensor:
 
 def expert_ffn(p: MoE, xb: torch.Tensor) -> torch.Tensor:
     """xb (G, E, C, D) -> (G, E, C, D): each expert's swiglu on its slots,
-    the weights cast to xb's dtype."""
+    the weights cast to xb's dtype.  On a mesh the einsums fold the group
+    axis into their products, so a group axis split unevenly (one decode
+    group over 16 ranks) is gathered first (``sharding.even_splits``)."""
     dt = xb.dtype
+    xb = even_splits(xb)
     h = torch.einsum("gecd,edf->gecf", xb, p.wi.to(dt))
     gate = torch.einsum("gecd,edf->gecf", xb, p.wg.to(dt))
-    return torch.einsum("gecf,efd->gecd", layers.silu(h) * gate, p.wo.to(dt))
+    # the JAX package constrains h per group under vmap, which leaves the
+    # group axis as it is: on the batch axes here
+    h = constrain(layers.silu(h) * gate, "batch", "experts", "expert_cap",
+                  None)
+    return torch.einsum("gecf,efd->gecd", even_splits(h), p.wo.to(dt))
+
+
+def _dispatch(xt, flat_e, pos, keep, e: int, cap: int, k: int):
+    """Each kept assignment's token into its (group, expert, slot) of a
+    (G, E, C, D) buffer; a dropped one writes nothing."""
+    g, tg, d = xt.shape
+    # flat slot of each assignment in the (G, E, C) buffer; a dropped one
+    # goes to one spare row past the end, which is cut off unread
+    base = (torch.arange(g, device=xt.device)[:, None] * e + flat_e) * cap
+    spare = g * e * cap
+    slot = torch.where(keep, base + pos, spare)
+    tok = torch.arange(tg * k, device=xt.device) // k
+    buf = xt.new_zeros(spare + 1, d)
+    buf.index_copy_(0, slot.reshape(-1), xt[:, tok].reshape(g * tg * k, d))
+    return buf[:spare].view(g, e, cap, d)
+
+
+def _combine(yb, flat_e, pos, keep, topw, k: int, first: int = 0):
+    """Each token's outputs from the slots of its kept assignments, by
+    their weights, summed over its k assignments: (G, Tg, D).  ``yb`` holds
+    the experts ``first`` ... ``first + yb.shape[1] - 1``; an assignment to
+    another expert, or a dropped one, adds 0."""
+    g, n_e, cap, d = yb.shape
+    e = flat_e - first
+    mine = keep & (e >= 0) & (e < n_e)
+    base = (torch.arange(g, device=yb.device)[:, None] * n_e
+            + e.clamp(0, n_e - 1)) * cap
+    w = torch.where(mine, topw.reshape(flat_e.shape), 0.0).to(yb.dtype)
+    y_tok = yb.reshape(g * n_e * cap, d)[torch.where(mine, base + pos,
+                                                     base)]
+    return (y_tok * w[..., None]).reshape(g, -1, k, d).sum(dim=2)
 
 
 def moe_layer(p: MoE, cfg, x: torch.Tensor):
@@ -144,7 +186,7 @@ def moe_layer(p: MoE, cfg, x: torch.Tensor):
     t = b * s
     g = groups(cfg, t)
     tg = t // g
-    xt = x.reshape(g, tg, d)
+    xt = constrain(x.reshape(g, tg, d), "batch", None, None)
 
     probs, topw, tope = route(p, cfg, xt)
     density = _one_hot(tope[..., 0], e).float().mean(dim=(0, 1))
@@ -153,23 +195,40 @@ def moe_layer(p: MoE, cfg, x: torch.Tensor):
 
     cap = capacity(cfg, tg)
     flat_e = tope.reshape(g, tg * k)
-    pos = positions(cfg, flat_e)
+    rows, cells = ("batch", None), ("batch", None, None, None)
+    pos = local(functools.partial(positions, cfg), rows, rows)(flat_e)
     keep = pos < cap
     p.n_dropped = (~keep).sum()
-    # flat slot of each assignment in the (G, E, C) buffer; a dropped one
-    # goes to one spare row past the end, which is cut off unread
-    base = (torch.arange(g, device=x.device)[:, None] * e + flat_e) * cap
-    spare = g * e * cap
-    slot = torch.where(keep, base + pos, spare)
-    tok = torch.arange(tg * k, device=x.device) // k
-    buf = x.new_zeros(spare + 1, d)
-    buf.index_copy_(0, slot.reshape(-1),
-                    xt[:, tok].reshape(g * tg * k, d))
-    yb = expert_ffn(p, buf[:spare].view(g, e, cap, d))
-
-    w = torch.where(keep, topw.reshape(g, tg * k), 0.0).to(x.dtype)
-    y_tok = yb.reshape(spare, d)[torch.where(keep, base + pos, base)]
-    out = (y_tok * w[..., None]).reshape(g, tg, k, d).sum(dim=2)
+    buf = local(functools.partial(_dispatch, e=e, cap=cap, k=k), cells,
+                ("batch", None, None), rows, rows, rows)(xt, flat_e, pos,
+                                                         keep)
+    buf = constrain(buf, "batch", "experts", "expert_cap", None)
+    yb = constrain(expert_ffn(p, buf), "batch", "experts", "expert_cap",
+                   None)
+    out = _combine_local(cfg, yb, flat_e, pos, keep, topw)
     if p.shared is not None:
         out = out + p.shared(xt)
     return out.reshape(b, s, d), aux
+
+
+def _combine_local(cfg, yb, flat_e, pos, keep, topw):
+    """:func:`_combine` on each rank's groups and experts: with the
+    experts split over 'model', each rank adds the outputs of its own
+    experts, and the token's sum is pending over 'model' (the block's
+    constraint all-reduces it with the shared experts' partial products),
+    as XLA partitions the JAX gather from expert-sharded slots.  Without a
+    mesh, :func:`_combine` of every expert."""
+    k = cfg.top_k
+    split = cfg.n_experts % axis_size("experts") == 0
+    experts = "experts" if split else None
+
+    def body(yb, flat_e, pos, keep, topw):
+        first = local_index("experts") * yb.shape[1] if split else 0
+        return _combine(yb, flat_e, pos, keep, topw, k, first)
+    rows, out = ("batch", None), ("batch", None, None)
+    # each rank weights the outputs of its own experts: its gradient of
+    # the weights is its part of a sum over 'model'
+    return local(body, Pending(out, ("experts",)) if split else out,
+                 ("batch", experts, None, None), rows, rows, rows, out,
+                 partial_grads={4: ("experts",)} if split else None)(
+                     yb, flat_e, pos, keep, topw)

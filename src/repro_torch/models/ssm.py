@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from . import layers
+from .sharding import distribute, flatten, local, unflatten
 
 NEG_INIT = -1e30        # sLSTM's stabilizer m before the first token
 
@@ -116,6 +117,38 @@ def chunked_decay_attention(q, k, v, logdecay, chunk: int, state=None,
     return y, S.reshape(b, h, n, p)
 
 
+def _decay_local(q, k, v, logdecay, chunk: int, state, dtype):
+    """:func:`chunked_decay_attention` on each rank's rows and heads (each
+    head's recurrence is its own, so no collective runs inside the chunk
+    loop), heads split over 'model' as ``sharding.constrain`` splits them.
+    q and k are split with the heads where each head has its own (mLSTM:
+    G = H); Mamba2's one group stays whole on every rank, which reads it
+    for its own heads, so its gradient is the rank's part of a sum over
+    'model'.  Without a mesh, :func:`chunked_decay_attention` itself."""
+    own = q.shape[2] == v.shape[2]
+    qk = ("batch", None, "heads" if own else None, None)
+    cells = ("batch", "heads", None, None)
+
+    def body(q, k, v, logdecay, *state):
+        if v.shape[2] == 0:
+            # a rank past the last head: nothing to run; its inputs stay in
+            # the graph, so that every rank's backward runs the same
+            # collectives
+            zero = (q.sum() + k.sum() + logdecay.sum()).float() * 0
+            b, n, p = v.shape[0], q.shape[3], v.shape[3]
+            return (v.float() + zero,
+                    v.new_zeros(b, 0, n, p, dtype=torch.float32) + zero)
+        return chunked_decay_attention(q, k, v, logdecay, chunk,
+                                       state[0] if state else None, dtype)
+    given = () if state is None else (distribute(state, *cells),)
+    return local(body, [("batch", None, "heads", None), cells], qk, qk,
+                 ("batch", None, "heads", None), ("batch", None, "heads"),
+                 *[cells] * len(given),
+                 partial_grads=None if own else {0: ("heads",),
+                                                 1: ("heads",)})(
+        q, k, v, logdecay, *given)
+
+
 def decay_attention_step(q, k, v, logdecay, state):
     """One token of the recurrence (decode): q, k (B, H, N), v (B, H, P),
     logdecay (B, H), state (B, H, N, P) -> (y (B, H, P), the new state),
@@ -173,16 +206,16 @@ def _mamba2_project(p: Mamba2, cfg, x):
 
 def mamba2_layer(p: Mamba2, cfg, x, state=None):
     """x (B, S, D) -> (y (B, S, D), the final state (B, nh, N, P))."""
-    b, s, _ = x.shape
-    d_inner, nh = mamba2_dims(cfg)
+    s = x.shape[1]
+    _, nh = mamba2_dims(cfg)
     z, xh, bmat, cmat, dt, a = _mamba2_project(p, cfg, x)
-    xh = xh.reshape(b, s, nh, cfg.ssm_head_dim)
+    xh = unflatten(xh, nh, cfg.ssm_head_dim)
     v = xh * dt[..., None].to(xh.dtype)
-    y, st = chunked_decay_attention(
+    y, st = _decay_local(
         cmat[:, :, None], bmat[:, :, None], v, a * dt,
         min(cfg.ssm_chunk, s), state, _compute_dtype(cfg))
     y = y.to(x.dtype) + p.D.to(x.dtype)[:, None] * xh
-    y = y.reshape(b, s, d_inner) * layers.silu(z)
+    y = flatten(y) * layers.silu(z)
     return p.out_proj(y), st
 
 
@@ -191,7 +224,7 @@ def mamba2_step(p: Mamba2, cfg, x, state):
     b = x.shape[0]
     d_inner, nh = mamba2_dims(cfg)
     z, xh, bmat, cmat, dt, a = _mamba2_project(p, cfg, x)
-    xh = xh.reshape(b, nh, cfg.ssm_head_dim)
+    xh = unflatten(xh.reshape(b, -1), nh, cfg.ssm_head_dim)
     shape = (b, nh, cfg.ssm_state)
     dt1 = dt[:, 0]                                           # (B, nh)
     v = xh * dt1[..., None].to(xh.dtype)
@@ -245,9 +278,9 @@ def _mlstm_project(p: MLSTM, cfg, x):
     xh, z = p.up(p.ln(x)).chunk(2, dim=-1)
     # JAX divides by the Python scalar rounded to the activations' dtype
     scale = torch.tensor(dh ** 0.5, dtype=x.dtype).item()
-    q = p.wq(xh).reshape(b, s, h, dh) / scale
-    k = p.wk(xh).reshape(b, s, h, dh)
-    v = p.wv(xh).reshape(b, s, h, dh)
+    q = unflatten(p.wq(xh), h, dh) / scale
+    k = unflatten(p.wk(xh), h, dh)
+    v = unflatten(p.wv(xh), h, dh)
     ig, fg = p.wif(xh).float().chunk(2, dim=-1)              # (B, S, H)
     i_t = torch.sigmoid(ig)
     return xh, z, q, k * i_t[..., None].to(k.dtype), v, layers.log_sigmoid(fg)
@@ -260,11 +293,10 @@ def _with_ones(v):
 
 
 def _mlstm_out(p: MLSTM, cfg, x, yn, z):
-    b, s, _ = x.shape
-    d_inner, dh = mlstm_dims(cfg)
+    _, dh = mlstm_dims(cfg)
     num, den = yn[..., :dh], yn[..., dh:]
     y = (num / torch.clamp_min(den.abs(), 1.0)).to(x.dtype)
-    y = p.norm(y.reshape(b, s, d_inner)) * layers.silu(z)
+    y = p.norm(flatten(y)) * layers.silu(z)
     return p.down(y)
 
 
@@ -272,9 +304,8 @@ def mlstm_layer(p: MLSTM, cfg, x, state=None):
     """x (B, S, D) -> (y (B, S, D), the final state (B, H, dh, dh + 1))."""
     s = x.shape[1]
     _, z, q, k, v, ld = _mlstm_project(p, cfg, x)
-    yn, st = chunked_decay_attention(q, k, _with_ones(v), ld,
-                                     min(cfg.ssm_chunk, s), state,
-                                     _compute_dtype(cfg))
+    yn, st = _decay_local(q, k, _with_ones(v), ld, min(cfg.ssm_chunk, s),
+                          state, _compute_dtype(cfg))
     return _mlstm_out(p, cfg, x, yn, z), st
 
 
@@ -353,9 +384,30 @@ def slstm_layer(p: SLSTM, cfg, x, state=None):
     if state is None:
         state = slstm_init_state(cfg, b, device=x.device)
     x = p.ln(x)
-    gx = p.wx(x).reshape(b, s, h, 4 * (d // h))
-    y, state = slstm_scan(p.r, gx, state)
-    return p.down(y.to(x.dtype).reshape(b, s, d)), state
+    gx = unflatten(p.wx(x), h, 4 * (d // h))
+    y, state = _scan_local(p.r, gx, state)
+    return p.down(flatten(y.to(x.dtype))), state
+
+
+def _scan_local(r, gx, state):
+    """:func:`slstm_scan` on each rank's rows and heads (the heads are
+    independent; 'model' splits them, as ``sharding.constrain`` splits an
+    uneven count): the token loop runs on local tensors, no collective
+    inside it.  Each rank's gradient of ``r`` is its part of a sum over
+    the batch.  Without a mesh, :func:`slstm_scan` itself."""
+    cells, rows = ("batch", "heads", None), ("batch", "heads")
+    state = tuple(distribute(t, *(cells if t.ndim == 3 else rows))
+                  for t in state)
+
+    def body(r, gx, *state):
+        y, new = slstm_scan(r, gx, state)
+        return (y, *new)
+    y, *new = local(body, [("batch", None, "heads", None), cells, cells,
+                           cells, rows], ("heads", None, None),
+                    ("batch", None, "heads", None), cells, cells, cells,
+                    rows,
+                    partial_grads={0: ("batch",)})(r, gx, *state)
+    return y, tuple(new)
 
 
 def slstm_step(p: SLSTM, cfg, x, state):

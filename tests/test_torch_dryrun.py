@@ -36,7 +36,9 @@ from repro_torch.configs import InputShape
 from repro_torch.configs import get_config as torch_config
 from repro_torch.launch import dryrun, hillclimb, report, roofline, \
     shardings, specs
+from repro_torch.launch import mesh as torch_mesh
 from repro_torch.launch import steps as torch_steps
+from repro_torch.models.sharding import logical_rules
 from repro_torch.obs import PredictReport, TrainReport
 from repro_torch.optim import AdamWConfig
 
@@ -169,8 +171,9 @@ def _columns(table: str) -> list[dict]:
 
 def test_report_tables_match_jax():
     """The roofline table is the JAX package's string on the same records;
-    the dry-run table's shared columns are the JAX package's cells; the
-    port's collective cell is '-' where it has no number."""
+    the dry-run table's shared columns are the JAX package's cells, the
+    collective cell too where the record counts collectives ('-' where it
+    has no number)."""
     recs = _records()
     assert report.roofline_table(recs) == jax_report.roofline_table(recs)
     got, want = (_columns(t) for t in (report.dryrun_table(recs),
@@ -179,9 +182,11 @@ def test_report_tables_match_jax():
     shared = (set(got[0]) & set(want[0])) - {"collective bytes/dev"}
     assert shared == {"arch", "shape", "mesh", "status", "arg GB/dev",
                       "temp GB/dev"}
-    for g, w in zip(got, want):
+    for g, w, r in zip(got, want, recs):
         assert {k: g[k] for k in shared} == {k: w[k] for k in shared}
-        assert g["collective bytes/dev"] == "-"
+        # a pod record's collective bytes as the JAX cell, '-' without
+        assert g["collective bytes/dev"] == (
+            w["collective bytes/dev"] if "collective_bytes" in r else "-")
     assert [g["meta run s"] for g in got] == ["3.5", "4.5", "5.5", "0"]
     assert [g["fits 80 GB"] for g in got] == ["no", "yes", "unknown", "-"]
     assert got[2]["state GB/dev pod16x16 / pod2x16x16"] == \
@@ -416,3 +421,256 @@ def test_cli_report_and_hillclimb(cli_run, tmp_path, monkeypatch, capsys):
     assert rec["c1"] == rec["baseline_c1"] == dryrun.count_cost(
         dryrun._delta_cfg(torch_config("glm4-9b"), 1),
         TORCH_SHAPES["decode_32k"])
+
+
+# --------------------------------------------------------------------------
+# The sharded pass: the step under the plan, meta tensors in a fake group
+# of a 2 x 2 (data, model) mesh (test_dryrun_mini.py's mesh and shapes).
+# --------------------------------------------------------------------------
+
+DEBUG_MESH = torch_mesh.make_debug_mesh(2, 2)
+MINI_SHAPES = {"train_4k": InputShape("train_4k", 256, 8, "train"),
+               "decode_32k": InputShape("decode_32k", 512, 8, "decode"),
+               # one decode row, which the data axis splits unevenly
+               "decode_row": InputShape("decode_row", 512, 1, "decode")}
+
+
+@pytest.mark.parametrize("shape", list(MINI_SHAPES))
+@pytest.mark.parametrize("arch", ["glm4-9b", "deepseek-moe-16b", "xlstm-125m",
+                                  "zamba2-2.7b", "whisper-tiny"])
+def test_sharded_mini_dryrun(arch, shape):
+    """test_dryrun_mini.py's combos: every op's placement resolves
+    (status ok), a dominant term among the three, FLOPs counted; the
+    collective term is the counted bytes over the inter-node rate."""
+    rec = dryrun.run_sharded(arch, shape, DEBUG_MESH,
+                             cfg=torch_config(arch, smoke=True),
+                             shape=MINI_SHAPES[shape], verbose=False)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["mesh"] == "pod2x2"
+    rf = rec["roofline"]
+    assert rf["dominant"] in ("compute", "memory", "collective")
+    assert rec["flops"] > 0 and rec["bytes_accessed"] > 0
+    assert sorted(rec["collective_bytes"]) == sorted(roofline.COLLECTIVES)
+    assert rf["collective_s"] == sum(rec["collective_bytes"].values()) / \
+        roofline.INTERNODE_BYTES_PER_S
+
+
+def test_merged_pod_axes_against_three_dims():
+    """The multi-pod mesh applied with 'pod' and 'data' as one DTensor dim
+    (mesh.MERGED), against the same plan on a three-dim DeviceMesh, a 2 x
+    2 x 2 (pod, data, model) dense train step: the same FLOPs, and no
+    collective kind moves more bytes (on three dims DTensor reduces one
+    dim at a time and gathers a batch split twice before a reshape)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = torch_mesh.MeshShape(("pod", "data", "model"),
+                                 {"pod": 2, "data": 2, "model": 2})
+    cfg = _smoke("glm4-9b", train_microbatches=2)
+    step = InputShape("x", 64, 8, "train")
+    merged = dryrun.count_sharded(cfg, step, shape)
+    real = torch_mesh.device_mesh
+    with pytest.MonkeyPatch.context() as mp:
+        def three_dims(mesh, device_type="cuda"):
+            dm = init_device_mesh(device_type, (2, 2, 2),
+                                  mesh_dim_names=mesh.axis_names)
+            dm.plan_shape = mesh
+            return dm
+        mp.setattr(dryrun, "device_mesh", three_dims)
+        three = dryrun.count_sharded(cfg, step, shape)
+    assert dryrun.device_mesh is real
+    assert (merged["flops"], merged["flops_float32"]) == \
+        (three["flops"], three["flops_float32"])
+    assert all(merged["coll"][k] <= three["coll"][k]
+               for k in roofline.COLLECTIVES)
+    assert 0 < merged["coll"]["reduce-scatter"]
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_twice_the_batch_devices_move_no_more_bytes_a_device(arch, kind):
+    """The ssm and hybrid steps at 2 x 2 x 2 (pod, data, model) against 2
+    x 2: twice the batch devices halve each device's rows, so no
+    collective kind moves more bytes a device, and the FLOPs a device
+    fall (the recurrent layers' residual stream pinned as a decoder block
+    leaves it; without the pin DTensor moves the batch onto 'model' and
+    back, and xlstm-125m's train step moves more a device at 2 x 16 x 16
+    than at 16 x 16)."""
+    cfg = _smoke(arch)
+    step = InputShape("x", 64, 8, kind)
+    pods = torch_mesh.MeshShape(("pod", "data", "model"),
+                                {"pod": 2, "data": 2, "model": 2})
+    one, two = (dryrun.count_sharded(cfg, step, m)
+                for m in (DEBUG_MESH, pods))
+    assert all(two["coll"][k] <= one["coll"][k]
+               for k in roofline.COLLECTIVES), (one["coll"], two["coll"])
+    assert sum(two["coll"].values()) < sum(one["coll"].values())
+    assert two["flops"] < one["flops"]
+
+
+@pytest.mark.parametrize("n_heads,mine", [(8, 2), (6, 2), (3, 1)])
+def test_a_device_counts_its_share_of_the_heads(n_heads, mine):
+    """On a 1 x 4 (data, model) mesh the flash calls that rank 0 counts
+    are its share of the query heads, ceil(H / 4) of H, whether or not 4
+    divides H (XLA pads an uneven split; DTensor leaves the last ranks
+    fewer or none): a device's attention work, not every head's."""
+    cfg = _smoke("glm4-9b", n_heads=n_heads, n_kv_heads=1,
+                 attn_impl="pallas")
+    shape = InputShape("x", 128, 4, "prefill")
+    fn, args = dryrun.build_step(cfg, shape)
+    whole = roofline.count_step(fn, *args)["attention"]["flops"]
+    four = torch_mesh.make_debug_mesh(1, 4)
+    with torch_mesh.fake_group(four.size):
+        dm = torch_mesh.device_mesh(four)
+        fn, args, rules = dryrun.build_sharded(cfg, shape, dm)
+        with logical_rules(rules, dm):
+            got = roofline.count_step(fn, *args)["attention"]["flops"]
+    assert whole > 0 and got * n_heads == whole * mine
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_a_device_counts_its_share_of_the_vocabulary(kind):
+    """A vocabulary that 'model' does not divide (the plan leaves the
+    table whole) still splits the logits: on a 1 x 4 mesh rank 0 makes
+    ceil(510 / 4) = 128 columns, as many as of 512 words, so the FLOPs a
+    device are the same."""
+    four = torch_mesh.make_debug_mesh(1, 4)
+    shape = InputShape("x", 64, 4, kind)
+    even, uneven = (dryrun.count_sharded(_smoke("glm4-9b", vocab_size=v),
+                                         shape, four)
+                    for v in (512, 510))
+    assert uneven["flops"] == even["flops"] > 0
+
+
+def _block(cfg, kind, seq=64, batch=4) -> dict:
+    """The collective bytes one more unit adds to the sharded step."""
+    c1, c2 = (dryrun.count_sharded(dryrun._delta_cfg(cfg, n),
+                                   InputShape("x", seq, batch, kind),
+                                   DEBUG_MESH)["coll"] for n in (1, 2))
+    return {k: c2[k] - c1[k] for k in c1}
+
+
+def _none_but(**kinds) -> dict:
+    return {k: kinds.get(k.replace("-", "_"), 0)
+            for k in roofline.COLLECTIVES}
+
+
+def test_dense_block_all_reduces_its_two_row_parallel_outputs():
+    """A dense block's prefill moves two all-reduces of its (rows, seq,
+    d_model) bf16 output, at the constraints after attention and after
+    the MLP (the JAX package's model.py:119 and :127), and nothing
+    else."""
+    cfg = _smoke("glm4-9b")
+    rows = 4 // DEBUG_MESH.shape["data"]
+    assert _block(cfg, "prefill") == _none_but(
+        all_reduce=2 * rows * 64 * cfg.d_model * 2)
+
+
+def test_dense_block_reduce_scatters_its_zero1_gradients():
+    """With train_microbatches = 2 each microbatch's gradient of every
+    block parameter whose AdamW moments are split over 'data' (ZeRO-1) is
+    reduce-scattered there once: its local float32 bytes, twice."""
+    cfg = _smoke("glm4-9b", train_microbatches=2)
+    with torch_mesh.fake_group(DEBUG_MESH.size):
+        dm = torch_mesh.device_mesh(DEBUG_MESH)
+        model, opt = torch_steps.train_state_shapes(
+            dryrun._delta_cfg(cfg, 1), AdamWConfig())
+        shardings.shard_model(model, dm, cfg)
+        opt = shardings.shard_opt_state(opt, dm, cfg)
+        data = dm.mesh_dim_names.index("data")
+        zero1 = [p.to_local().numel() * 4
+                 for n, p in model.named_parameters()
+                 if n.startswith("layers.0.")
+                 and opt["m"][n].placements[data].is_shard()]
+    assert len(zero1) >= 7                  # the block's matrices, scales
+    assert _block(cfg, "train")["reduce-scatter"] == 2 * sum(zero1)
+
+
+def test_moe_block_dispatch_moves_no_bytes():
+    """Under the plan's placements (tokens whole on every 'model' rank,
+    experts split over it) each rank fills and runs its own experts'
+    slots, and adds their outputs into the block's pending sum: a moe
+    block's prefill moves the dense block's two all-reduces and the
+    load-balance loss's two (E,) float32 means, no all-to-all."""
+    cfg = _smoke("deepseek-moe-16b")
+    rows = 4 // DEBUG_MESH.shape["data"]
+    assert _block(cfg, "prefill") == _none_but(
+        all_reduce=2 * rows * 64 * cfg.d_model * 2 + 2 * cfg.n_experts * 4)
+
+
+def test_moe_train_under_seq_shard_counts_all_to_all():
+    """deepseek-moe-16b trains with seq_shard (its CONFIG): the sequence
+    split of the residual stream meets the heads' and the shared experts'
+    split on 'model', one all-to-all each way."""
+    assert torch_config("deepseek-moe-16b").seq_shard
+    cfg = _smoke("deepseek-moe-16b", seq_shard=True)
+    c = dryrun.count_sharded(cfg, InputShape("x", 64, 4, "train"),
+                             DEBUG_MESH)
+    assert c["coll"]["all-to-all"] > 0
+    assert dryrun.count_sharded(_smoke("deepseek-moe-16b"), InputShape(
+        "x", 64, 4, "train"), DEBUG_MESH)["coll"]["all-to-all"] == 0
+
+
+@pytest.mark.parametrize("arch,kind", [("glm4-9b", "train"),
+                                       ("deepseek-moe-16b", "prefill"),
+                                       ("zamba2-2.7b", "train"),
+                                       ("internvl2-1b", "prefill"),
+                                       ("whisper-tiny", "decode")])
+def test_sharded_unit_extrapolation_equals_the_full_count(arch, kind):
+    """c1 + 2(c2 - c1) equals the sharded count of a 3-unit stack
+    exactly: FLOPs, bytes and collective bytes by kind (in the ssm and
+    hybrid families too, whose recurrent layers leave the residual stream
+    placed as a decoder block does)."""
+    cfg = _smoke(arch)
+    shape = InputShape("x", 64, 4, kind)
+    c1, c2, full = (dryrun.count_sharded(dryrun._delta_cfg(cfg, n), shape,
+                                         DEBUG_MESH)
+                    for n in (1, 2, 3))
+    assert full["flops"] > 0
+    assert dryrun._extrapolate(c1, c2, 2) == full
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_slstm_loop_extrapolation_equals_the_full_count(kind):
+    """The sLSTM loop counted at 3 and 4 tokens and extrapolated to the
+    sequence equals the count of the whole loop (every token step the
+    same; the first and last apart, in both counted runs), and the whole
+    method (units from the first, and the loop) that of a 4-unit
+    stack."""
+    cfg = _smoke("xlstm-125m")
+    shape = InputShape("x", 64, 4, kind)
+    full = dryrun.count_sharded(cfg, shape, DEBUG_MESH)
+    a, b = (dryrun.count_sharded(cfg, shape, DEBUG_MESH, slstm_steps=k)
+            for k in dryrun.SLSTM_STEPS)
+    assert a != b and dryrun._extrapolate(a, b, 64 - 3) == full
+    four = dryrun._delta_cfg(cfg, 4)
+    assert dryrun.measure_sharded(four, shape, DEBUG_MESH) == \
+        dryrun.count_sharded(four, shape, DEBUG_MESH)
+
+
+def test_cli_writes_pod_records(tmp_path, monkeypatch, capsys):
+    """``--both-meshes`` writes a record at each pod mesh; pod16x16's has
+    the collective bytes, a numeric collective term and a device's
+    counts, and the report prints them."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "glm4-9b", "--shape", "decode_32k", "--both-meshes", "--out-dir",
+         str(tmp_path)], env=env, capture_output=True, text=True,
+        timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    recs = {p.name: json.loads(p.read_text())
+            for p in tmp_path.glob("*.json")}
+    assert sorted(recs) == ["glm4-9b__decode_32k__pod16x16.json",
+                            "glm4-9b__decode_32k__pod2x16x16.json"]
+    one, two = (recs[f"glm4-9b__decode_32k__{m}.json"]
+                for m in ("pod16x16", "pod2x16x16"))
+    assert one["status"] == two["status"] == "ok"
+    assert one["roofline"]["collective_s"] > 0
+    assert one["flops"] > 0 and "roofline" not in two
+    assert two["collective_bytes"]["all-reduce"] > 0
+    monkeypatch.setattr(sys, "argv", ["report", "--dir", str(tmp_path)])
+    report.main()
+    out = capsys.readouterr().out
+    coll = f"{sum(one['collective_bytes'].values()):.3g}"
+    assert f"| glm4-9b | decode_32k | pod16x16 | ok |" in out
+    assert f"| {coll} |" in out
+    assert f"{one['roofline']['collective_s'] * 1e3:.2f}" in out
